@@ -6,15 +6,24 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   f64 and f32, at a ragged size and at the main path's shape, timed with
-   CUDA events beside the plain version and a yardstick;
-4. the main path: the CLI default (``gen-ip002``), then the full-width
+   f64 and f32, at a ragged size and at the main path's shape (B6 also
+   with a batch of 3 and with zero padding), timed with CUDA events
+   beside the plain version and a yardstick;
+4. the dense path: the CLI default (``gen-ip002``), then the full-width
    dense instance solved twice, stepped (B1/B2 every step) and with the
    check-window megakernel (B3 every window).  Both must reach
    ``optimal`` on the same iteration count, with the launch counters
-   showing each kernel on its path.
+   showing each kernel on its path;
+5. the crossbar paths: the CLI's ``--backend taox`` and ``--backend
+   epiram --refine-rounds 2`` and the host driver on the crossbar
+   simulation with B6 (``gen-ip002``, each within the paper's 5e-2
+   objective band); then at full width, TaOx-HfOx in f64, the host
+   driver with B6 on every MVM, the same driver for 200 iterations with
+   and without B6 (the two ``x`` within 1e-9), and ``solve_crossbar_jit``.
+   Each path's launch counts are read on their own.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -56,19 +65,44 @@ PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 # each output's error over that output's own largest |value|
 #  B1/B2: one elementwise pass; FMA contraction is the only difference
 #  B3:    100 steps; the dot products sum in another order than cuBLAS
+#  B6:    one row sum of up to 11520 terms, warp-strided in the kernel
+#         and in cuBLAS's order in the plain version
 TOLS = {
     ("dual_update", "float64"): 1e-14, ("dual_update", "float32"): 1e-6,
     ("primal_update", "float64"): 1e-14, ("primal_update", "float32"): 1e-6,
     ("fused_dense_steps", "float64"): 1e-12,
     ("fused_dense_steps", "float32"): 1e-5,
+    ("crossbar_mvm", "float64"): 1e-13, ("crossbar_mvm", "float32"): 1e-5,
 }
 
-SOURCE = "src/repro_torch/kernels/csrc/pdhg_kernels.cu"
+KERNEL_NAMES = ("dual_update", "primal_update", "fused_dense_steps",
+                "crossbar_mvm")
+SOURCES = {
+    "dual_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "primal_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "fused_dense_steps": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "crossbar_mvm": "src/repro_torch/kernels/csrc/crossbar_mvm.cu",
+}
 REPLACES = {
     "dual_update": "src/repro/kernels/pdhg_update.py:45",
     "primal_update": "src/repro/kernels/pdhg_update.py:34",
     "fused_dense_steps": "src/repro/kernels/pdhg_megakernel.py:74",
+    "crossbar_mvm": "src/repro/kernels/crossbar_mvm.py:41",
 }
+
+# the crossbar paths: gen-ip002 through the CLI and the host driver
+# (iteration budgets cut from the CLI's 40000: the crossbar's noise floor
+# stops every solve short of tol=1e-6, so each runs to its budget), and
+# the full-width instance on TaOx-HfOx in f64
+SMALL_CROSSBAR_ITERS = 10000
+HOST_SMALL_ITERS = 6000
+OBJ_BAND = 5e-2            # the paper's Table-2 gap band (test_system)
+# full-width host driver with B6 on every MVM: an iteration costs two
+# reads of G+/G- (2.12 GB each in f64); the budget keeps the phase near
+# a minute on the card (PERF.md, "Cells")
+HOST_FULL_ITERS = 20000
+HOST_AB_ITERS = 200        # kernel against plain product, same seeds
+JIT_FULL_ITERS = 5000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,6 +116,22 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def one_nvcc_build_seconds(_build) -> float:
+    """Seconds to build the same library with a single ``nvcc -shared``
+    over every source (the form before the build ran one ``nvcc`` per
+    source at once), into a scratch directory; the yardstick of the
+    build phase's time."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-shared", "-o", os.path.join(tmp, _build.LIB_NAME),
+               *(str(_build.CSRC / s) for s in _build.SOURCES)]
+        t0 = time.perf_counter()
+        subprocess.run(cmd, capture_output=True, check=True, timeout=600)
+        return time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps: int = 20, inner: int = 1, warmup: int = 3,
@@ -301,19 +351,102 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
     return rows
 
 
-def _run(label, fn):
+def phase_crossbar_kernel(dim: int, sigma_read: float):
+    """B6 against its plain version: ragged, a batch of 3, zero padding,
+    and the full-width symmetric block (dim x dim), timed there beside
+    the plain version and cuBLAS reading the same bytes (two GEMVs)."""
+    import torch
+
+    from repro_torch.kernels import crossbar_mvm as xb
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        size = torch.finfo(dt).bits // 8
+        tol = TOLS[("crossbar_mvm", dname)]
+        for tag, shape in (("ragged", (777, 1235)),
+                           ("batch3", (3, 777, 1235)),
+                           ("main", (dim, dim))):
+            R, C = shape[-2:]
+            lead = shape[:-2]
+            gp = torch.rand(shape, generator=g, dtype=dt, device="cuda")
+            gn = torch.rand(shape, generator=g, dtype=dt, device="cuda")
+            v = _vec(g, (*lead, C), dt)
+            noise = sigma_read * torch.randn((*lead, R), generator=g,
+                                             dtype=dt, device="cuda")
+            scale = (torch.tensor([0.5, 0.83, 2.0], dtype=dt, device="cuda")
+                     if lead else 0.83)
+            out = xb.crossbar_mvm(gp, gn, v, scale, noise)
+            ref = xb.crossbar_mvm_plain(gp, gn, v, scale, noise)
+            torch.cuda.synchronize()
+            err, rel = max_err([out], [ref])
+            row = dict(dtype=dname, shape=list(shape), max_abs_err=err,
+                       rel_err=rel)
+            rows.append(row)
+            check(rel <= tol, f"crossbar_mvm {dname} {tag}: rel err "
+                              f"{rel:.3e}")
+            if tag == "ragged":
+                # zero rows and columns of padding change nothing
+                pad = torch.nn.functional.pad
+                padded = xb.crossbar_mvm(
+                    pad(gp, (0, 45, 0, 51)), pad(gn, (0, 45, 0, 51)),
+                    pad(v, (0, 45)), scale, pad(noise, (0, 51)))
+                torch.cuda.synchronize()
+                _, prel = max_err([padded[:R]], [out])
+                check(prel <= tol and bool(torch.all(padded[R:] == 0)),
+                      f"crossbar_mvm {dname}: zero padding not inert "
+                      f"({prel:.3e})")
+                row["padding_rel_err"] = prel
+            if tag == "main":
+                def gemvs():
+                    torch.mv(gp, v)
+                    torch.mv(gn, v)
+
+                # reads G+, G-, v, noise and the scale; writes w
+                row.update(
+                    ms=cuda_ms(lambda: xb.crossbar_mvm(gp, gn, v, scale,
+                                                       noise),
+                               reps=10, inner=10),
+                    plain_ms=cuda_ms(lambda: xb.crossbar_mvm_plain(
+                        gp, gn, v, scale, noise), reps=5, inner=2),
+                    library_ms=None,
+                    gemv_ms=cuda_ms(gemvs, reps=10, inner=10),
+                    bound=bound_ms((2 * R * C + C + 2 * R + 1) * size,
+                                   3 * R * C + 2 * R, dname))
+            del gp, gn, out, ref
+            torch.cuda.empty_cache()
+    for r in rows:
+        print(f"kernel crossbar_mvm {r['dtype']} shape={r['shape']}"
+              f" max_abs_err={r['max_abs_err']:.3e}"
+              f" rel_err={r['rel_err']:.3e}"
+              + (f" padding_rel_err={r['padding_rel_err']:.3e}"
+                 if "padding_rel_err" in r else "")
+              + (f" ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f}"
+                 f" gemv_ms={r['gemv_ms']:.6f}"
+                 f" bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+                 if "ms" in r else ""), flush=True)
+    return rows
+
+
+def _timed(fn):
+    """Run ``fn`` from a synchronised card; return (out, wall, peak)."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = fn()
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    return out, wall, torch.cuda.max_memory_allocated()
+
+
+def _run(label, fn):
+    res, wall, peak = _timed(fn)
     print(f"main {label}: status={res.status} iterations={res.iterations} "
           f"merit={res.merit:.3e} wall_s={wall:.3f} "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()}",
-          flush=True)
+          f"max_memory_allocated={peak}", flush=True)
     return res, wall
 
 
@@ -343,7 +476,8 @@ def phase_main(instance: str):
     check(res0.status == "optimal" and rel0 <= 1e-4,
           f"gen-ip002: {res0.status}, rel err {rel0:.3e}")
     want0 = {"dual_update": res0.iterations,
-             "primal_update": res0.iterations, "fused_dense_steps": 0}
+             "primal_update": res0.iterations, "fused_dense_steps": 0,
+             "crossbar_mvm": 0}
     check(cli_counts == want0,
           f"gen-ip002 launches {cli_counts}, expected {want0}")
     counts = {"cli gen-ip002": cli_counts}
@@ -371,10 +505,11 @@ def phase_main(instance: str):
             f"{instance} {label}: mvm_calls {res.mvm_calls}")
         windows = res.iterations // CHECK_EVERY
         want = ({"dual_update": res.iterations,
-                 "primal_update": res.iterations, "fused_dense_steps": 0}
+                 "primal_update": res.iterations, "fused_dense_steps": 0,
+                 "crossbar_mvm": 0}
                 if label == "stepped" else
                 {"dual_update": 0, "primal_update": 0,
-                 "fused_dense_steps": windows})
+                 "fused_dense_steps": windows, "crossbar_mvm": 0})
         check(delta == want, f"{instance} {label}: launches {delta}, "
                              f"expected {want}")
         results[label] = (res, wall)
@@ -389,9 +524,132 @@ def phase_main(instance: str):
     return counts
 
 
+def _ledger_line(led) -> str:
+    return (f"ledger write_energy_j={led.write_energy_j:.6e} "
+            f"write_latency_s={led.write_latency_s:.6e} "
+            f"read_energy_j={led.read_energy_j:.6e} "
+            f"read_latency_s={led.read_latency_s:.6e} "
+            f"mvm_count={led.mvm_count} cells_written={led.cells_written}")
+
+
+def phase_crossbar(instance: str):
+    """The crossbar paths through their entry points; returns each
+    path's own launch counts."""
+    import numpy as np
+
+    from repro_torch.core.pdhg import PDHGOptions, solve
+    from repro_torch.crossbar import (
+        TAOX_HFOX,
+        crossbar_accel_factory,
+        solve_crossbar_jit,
+    )
+    from repro_torch.launch import solve as cli
+
+    counts = {}
+    lp0 = cli.load_instance("gen-ip002")
+
+    def band(label, res):
+        rel = abs(res.obj - lp0.obj_opt) / abs(lp0.obj_opt)
+        print(f"crossbar {label}: objective={res.obj:.9f} "
+              f"known={lp0.obj_opt:.9f} rel_err={rel:.3e}", flush=True)
+        check(np.isfinite(res.obj) and rel <= OBJ_BAND,
+              f"{label}: rel err {rel:.3e} outside {OBJ_BAND}")
+
+    # the CLI's crossbar backends: solve_crossbar_jit on decoded
+    # conductances, B1/B2 every step and no B6
+    for label, args in (
+            ("cli taox", ["--backend", "taox"]),
+            ("cli epiram refine", ["--backend", "epiram",
+                                   "--refine-rounds", "2"])):
+        (res, wall, peak), delta = _counted(lambda: _timed(
+            lambda: cli.main(
+                [*args, "--max-iters", str(SMALL_CROSSBAR_ITERS)])))
+        print(f"crossbar {label}: status={res.status} "
+              f"iterations={res.iterations} merit={res.merit:.3e} "
+              f"mvm_calls={res.mvm_calls} wall_s={wall:.3f} "
+              f"max_memory_allocated={peak} launches={delta}", flush=True)
+        band(label, res)
+        want = {"dual_update": res.iterations,
+                "primal_update": res.iterations, "fused_dense_steps": 0,
+                "crossbar_mvm": 0}
+        check(delta == want, f"{label}: launches {delta}, expected {want}")
+        counts[label] = delta
+
+    def host(label, lp, iters, use_kernel, stamps=None):
+        fac = crossbar_accel_factory(TAOX_HFOX, use_kernel=use_kernel)
+        cb = None if stamps is None else (
+            lambda it, merit, acc: stamps.append((it, merit)))
+        opts = PDHGOptions(max_iters=iters, check_every=CHECK_EVERY)
+        (res, wall, peak), delta = _counted(lambda: _timed(
+            lambda: solve(lp, opts, accel_factory=fac, on_iteration=cb)))
+        led = fac.ledger
+        print(f"crossbar {label}: status={res.status} "
+              f"iterations={res.iterations} merit={res.merit:.3e} "
+              f"mvm_calls={res.mvm_calls} wall_s={wall:.3f} "
+              f"max_memory_allocated={peak} launches={delta} "
+              f"{_ledger_line(led)}", flush=True)
+        check(res.mvm_calls == led.mvm_count,
+              f"{label}: mvm_calls {res.mvm_calls} != ledger "
+              f"{led.mvm_count}")
+        want = {"dual_update": res.iterations,
+                "primal_update": res.iterations, "fused_dense_steps": 0,
+                "crossbar_mvm": res.mvm_calls if use_kernel else 0}
+        check(delta == want, f"{label}: launches {delta}, expected {want}")
+        counts[label] = delta
+        return res
+
+    # the host driver on the crossbar simulation, B6 on every MVM
+    band("host gen-ip002", host("host gen-ip002", lp0, HOST_SMALL_ITERS,
+                                True))
+
+    t0 = time.perf_counter()
+    lp = cli.load_instance(instance)
+    print(f"crossbar {instance}: generated in "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    # (a) full width, B6 on every MVM: the merit must fall
+    stamps = []
+    res = host("host full", lp, HOST_FULL_ITERS, True, stamps)
+    first = stamps[0][1]
+    check(np.isfinite(res.merit) and res.merit < first,
+          f"host full: merit {res.merit:.3e} not below its first check "
+          f"{first:.3e}")
+    print(f"crossbar host full: merit at first check {first:.3e}, "
+          f"at exit {res.merit:.3e}", flush=True)
+    # (b) the same seeds through B6 and through the plain product
+    ra = host("host full kernel 200", lp, HOST_AB_ITERS, True)
+    rb = host("host full plain 200", lp, HOST_AB_ITERS, False)
+    dx = float(np.max(np.abs(ra.x - rb.x)))
+    print(f"crossbar host full 200: kernel vs plain max|dx|={dx:.3e}",
+          flush=True)
+    check(ra.iterations == rb.iterations and dx <= 1e-9,
+          f"host full 200: kernel and plain differ by {dx:.3e}")
+    # (c) the device-resident crossbar solve on decoded conductances
+    opts = PDHGOptions(max_iters=JIT_FULL_ITERS, check_every=CHECK_EVERY)
+    (rep, wall, peak), delta = _counted(lambda: _timed(
+        lambda: solve_crossbar_jit(lp, opts, device=TAOX_HFOX)))
+    r, led = rep.result, rep.ledger
+    print(f"crossbar jit full: status={r.status} iterations={r.iterations} "
+          f"merit={r.merit:.3e} mvm_calls={r.mvm_calls} wall_s={wall:.3f} "
+          f"max_memory_allocated={peak} launches={delta} "
+          f"{_ledger_line(led)}", flush=True)
+    # M is (m+n)^2, padded to whole 64x64 tiles (none at 11520)
+    tile = TAOX_HFOX.crossbar_rows
+    dim = -(-sum(lp.K.shape) // tile) * tile
+    check(led.cells_written == 2 * dim * dim,
+          f"jit full: cells_written {led.cells_written} != 2*{dim}^2")
+    check(led.mvm_count == r.mvm_calls and np.isfinite(r.merit),
+          f"jit full: mvm_count {led.mvm_count}, mvm_calls {r.mvm_calls}")
+    check(delta == {"dual_update": r.iterations,
+                    "primal_update": r.iterations, "fused_dense_steps": 0,
+                    "crossbar_mvm": 0}, f"jit full: launches {delta}")
+    counts["jit full"] = delta
+    return counts
+
+
 # the full-width path on which each kernel's ``launches`` is read
 MAIN_PATH_OF = {"dual_update": "stepped", "primal_update": "stepped",
-                "fused_dense_steps": "megakernel"}
+                "fused_dense_steps": "megakernel",
+                "crossbar_mvm": "host full"}
 
 
 def main() -> int:
@@ -422,17 +680,23 @@ def main() -> int:
     for line in built.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}", flush=True)
+    print(f"build yardstick: one nvcc over all sources "
+          f"{one_nvcc_build_seconds(_build):.1f}s", flush=True)
+
+    from repro_torch.crossbar import TAOX_HFOX
 
     m, n = (int(v) for v in MAIN_INSTANCE.split(":")[1].split("x"))
     rows = phase_kernels(m, n, CHECK_EVERY)
+    rows["crossbar_mvm"] = phase_crossbar_kernel(m + n, TAOX_HFOX.sigma_read)
     counts = phase_main(MAIN_INSTANCE)
+    counts.update(phase_crossbar(MAIN_INSTANCE))
 
     line = []
-    for name in ("dual_update", "primal_update", "fused_dense_steps"):
+    for name in KERNEL_NAMES:
         main_row = next(r for r in rows[name]
                         if r["dtype"] == "float64" and "ms" in r)
         entry = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": counts[MAIN_PATH_OF[name]][name],
             "launches_by_path": {path: c[name] for path, c in counts.items()},

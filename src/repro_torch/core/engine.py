@@ -1,5 +1,6 @@
 """One PDHG iteration engine with pluggable operator / update backends;
-the port of ``repro.core.engine`` for the dense solve.
+the port of ``repro.core.engine`` for the dense solve and the host
+driver (the batched crossbar operator belongs to the batch slice).
 
 An enhanced-PDHG iteration is two MVMs plus cheap vector algebra.  This
 module is the single home of that step (``pdhg_step``), of the check
@@ -8,7 +9,9 @@ MVM accounting the energy ledger charges.  Two backend axes:
 
   * operator (``Operator``): the two MVMs — dense ``torch.mv`` with
     optional multiplicative read noise, plus an optional ``fuse`` hook
-    that runs a whole check window as one launch (the B3 megakernel);
+    that runs a whole check window as one launch (the B3 megakernel),
+    or a host-side ``Accel`` handle (``accel_operator``: the crossbar
+    simulation with its energy ledger, used by ``pdhg.solve``);
   * updates (``Updates``): the proximal vector algebra — plain PyTorch
     (``"torch"``) or the hand-written CUDA kernels (``"cuda"``, B1/B2;
     on CPU tensors the kernels' plain versions run instead).
@@ -31,6 +34,7 @@ import torch
 
 from ..kernels import pdhg_megakernel, pdhg_update
 from .residuals import kkt_residuals
+from .symblock import MODE_AX, MODE_ATY, matmul_accel
 
 KERNELS = ("torch", "cuda")        # counterparts of ("jnp", "pallas")
 SPARSE_KERNELS = ("ell", "bcoo")
@@ -114,6 +118,20 @@ def dense_operator(K_fwd, K_adj, sigma_read: float = 0.0,
         return w
 
     return Operator(fwd, adj, "dense")
+
+
+def accel_operator(accel) -> Operator:
+    """Host-loop backend over an encoded ``symblock.Accel`` handle (MVM
+    stats feed the energy ledger; the backend brings its own physics,
+    read noise included)."""
+
+    def fwd(v):
+        return matmul_accel(accel, v, MODE_AX)
+
+    def adj(v):
+        return matmul_accel(accel, v, MODE_ATY)
+
+    return Operator(fwd, adj, f"accel({accel.name})")
 
 
 # ------------------------------------------------- megakernel (fused) ---
@@ -469,3 +487,10 @@ def mvm_accounting(iterations: int, check_every: int,
     n_checks = max(1, iterations // max(1, check_every))
     return (lanczos_iters + MVMS_PER_ITERATION * iterations
             + mvms_per_check(restart) * n_checks)
+
+
+def refine_digital_mvms(refine_rounds: int) -> int:
+    """Exact (digital) MVMs the refinement shell (``crossbar.refine``)
+    issues outside the analog loops: one (Kx, K^T y) baseline pair plus
+    one candidate pair per round.  Never charged to the read ledger."""
+    return 0 if refine_rounds <= 0 else 2 + 2 * refine_rounds

@@ -1,5 +1,5 @@
-"""Enhanced PDHG for LPs (paper Algorithm 4): the dense ``solve_jit``
-path of ``repro.core.pdhg``, in PyTorch.
+"""Enhanced PDHG for LPs (paper Algorithm 4): the port of
+``repro.core.pdhg``, in PyTorch.
 
 Iteration (sign convention of eq. 7):
 
@@ -9,26 +9,40 @@ Iteration (sign convention of eq. 7):
     y_{k+1} = y_k + sigma * Sigma ⊙ (b - K x_bar)          # 1 MVM
     x_{k+1} = proj_[lb,ub]( x_k - tau * T ⊙ (c - K^T y_{k+1}) )  # 1 MVM
 
-``solve_jit`` keeps the reference's name: it is the device-resident
-solve (Ruiz + Pock–Chambolle + Lanczos + the engine's loop), although
-PyTorch runs it eagerly.  It runs on ``cuda`` unless ``device`` says
-otherwise, and raises when no card is visible and none was named.
+Two drivers, both on ``cuda`` unless ``device`` says otherwise (they
+raise when no card is visible and none was named):
+
+  * ``solve``      — the host loop (Algorithm 4) over an ``Accel``
+                     backend: every MVM is one read of the encoded M
+                     (the crossbar simulation with its energy ledger),
+                     with restarts, the adaptive rule, history and the
+                     divergence/Farkas exit.
+  * ``solve_jit``  — keeps the reference's name: the device-resident
+                     dense solve (Ruiz + Pock–Chambolle + Lanczos + the
+                     engine's loop), although PyTorch runs it eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..interop import Draws, lp_tensors
+from ..interop import Draws, lp_tensors, place_draws
 from . import engine
 from . import precondition as precond_mod
-from .lanczos import NORM_BACKENDS, lanczos_svd_jit, power_iteration_mv
+from .infeasibility import check_farkas
+from .lanczos import (
+    NORM_BACKENDS,
+    lanczos_svd,
+    lanczos_svd_jit,
+    power_iteration_mv,
+)
+from .noise import NOISELESS, NoiseModel
 from .residuals import KKTResiduals, kkt_residuals
-from .symblock import build_sym_block
+from .symblock import build_sym_block, encode_exact, encode_noisy, scaled_accel
 
 
 @dataclasses.dataclass
@@ -67,7 +81,8 @@ class PDHGOptions:
 
 @dataclasses.dataclass
 class PDHGResult:
-    status: str                 # "optimal" | "iteration_limit" | "diverged"
+    status: str                 # "optimal" | "iteration_limit" |
+    #                             "diverged" | "primal_infeasible"
     x: np.ndarray               # solution in ORIGINAL (unscaled) coordinates
     y: np.ndarray
     obj: float
@@ -154,6 +169,203 @@ def prepare(lp, opts: PDHGOptions, device=None):
     return scaled, T, Sigma
 
 
+def solve(
+    lp,
+    opts: PDHGOptions = PDHGOptions(),
+    accel_factory: Optional[Callable] = None,
+    noise: NoiseModel = NOISELESS,
+    on_iteration: Optional[Callable] = None,
+    *,
+    device=None,
+    draws: Optional[Draws] = None,
+) -> PDHGResult:
+    """Algorithm 4 host driver over an arbitrary accelerator backend.
+
+    ``accel_factory(K_scaled) -> Accel`` (default: the exact dense
+    backend, or ``noise`` on top of it, drawn from a generator seeded
+    with ``opts.seed``; a crossbar backend brings its own physics).
+    ``draws`` injects x0, y0 and the Lanczos start vector; by default
+    they come from generators seeded with ``opts.seed`` (Lanczos, drawn
+    on the CPU) and ``opts.seed + 1`` (x0, y0).  The loop reads the
+    merit on the host once per check (and the averaged iterate's merit
+    when restarts are on); ``mvm_calls`` is ``accel.stats``'s count.
+    """
+    dev = resolve_device(device)
+    opts_static(opts)    # shared option validation (step_rule/kernel/...)
+    scaled, T, Sigma = prepare(lp, opts, dev)
+    m, n = scaled.K.shape
+    dt = scaled.K.dtype
+
+    if accel_factory is None:
+        if noise.kind == "none":
+            accel = encode_exact(scaled.K)
+        else:
+            accel = encode_noisy(
+                scaled.K, noise.apply,
+                generator=torch.Generator(device=dev).manual_seed(opts.seed))
+    else:
+        accel = accel_factory(scaled.K)
+    x, y, v0 = place_draws(draws, scaled.lb, scaled.ub)
+
+    # ---- Step 1: operator-norm estimation on the PRECONDITIONED
+    # operator, by Lanczos on the similarity wrap diag(Sigma^1/2, T^1/2)
+    # M diag(Sigma^1/2, T^1/2) (host-side scaling, no device rewrite):
+    # rho = ||Sigma^1/2 K T^1/2||_2, and the diagonal steps (tau T,
+    # sigma Sigma) converge for tau*sigma*rho^2 < 1 (Lemma 2).
+    if opts.norm_override is not None:
+        rho = float(opts.norm_override)
+        lanczos_iters = 0
+    else:
+        wrapped = scaled_accel(accel, torch.sqrt(Sigma), torch.sqrt(T))
+        lres = lanczos_svd(wrapped, k_max=opts.lanczos_iters,
+                           tol=opts.lanczos_tol, v0=v0, reorthogonalize=True,
+                           seed=opts.seed, dtype=dt, device=dev)
+        rho = lres.sigma_max
+        lanczos_iters = lres.iterations
+
+    tau = opts.eta / (opts.omega * rho)
+    sigma = opts.eta * opts.omega / rho
+    adaptive = opts.step_rule == "adaptive"
+    adapt_prev = None               # previous boundary (x, y, Kx, KTy)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    if adaptive:
+        # data-driven primal-weight init + trust region (engine math)
+        tau, sigma = engine.adaptive_omega_init(
+            torch.as_tensor(tau, dtype=dt, device=dev),
+            torch.as_tensor(sigma, dtype=dt, device=dev),
+            scaled.b, scaled.c, T, Sigma)
+        w0 = torch.sqrt(sigma / tau)
+        w_lo = w0 / engine.ADAPT_OMEGA_CLIP
+        w_hi = w0 * engine.ADAPT_OMEGA_CLIP
+
+    # ---- Step 2: initialization (paper: projected Gaussian start).
+    if x is None:
+        x, y = engine.draw_init(
+            torch.Generator(device=dev).manual_seed(opts.seed + 1), m, n,
+            scaled.lb, scaled.ub, dt)
+    # running ergodic sums for restarts / averaged iterate
+    x_sum = torch.zeros_like(x)
+    y_sum = torch.zeros_like(y)
+    avg_len = 0
+    merit_at_restart = np.inf
+    n_restarts = 0
+
+    history = [] if opts.track_history else None
+    status = "iteration_limit"
+    res = None
+    it = 0
+
+    # the per-iteration math is the engine's; this driver owns only the
+    # host-level control flow (history, callbacks, the exits)
+    op = engine.accel_operator(accel)
+    upd = engine.make_updates(opts.kernel)
+    state = engine.init_state(x, y, tau, sigma, opts.gamma)
+    adapt_anchor = (state.x, state.y)   # restart anchor for omega updates
+    del x, y, tau, sigma
+
+    def residuals(x, x_prev, y, Kx, KTy):
+        return kkt_residuals(x, x_prev, y, scaled.c, scaled.b, Kx, KTy,
+                             lb=scaled.lb, ub=scaled.ub)
+
+    for it in range(opts.max_iters):
+        state = engine.pdhg_step(op, upd, scaled.b, scaled.c, scaled.lb,
+                                 scaled.ub, T, Sigma, opts.gamma, state)
+        x_sum = x_sum + state.x
+        y_sum = y_sum + state.y
+        avg_len += 1
+
+        if (it + 1) % opts.check_every == 0 or it == opts.max_iters - 1:
+            Kx = op.fwd(state.x)
+            KTy_c = op.adj(state.y)
+            res = residuals(state.x, state.x_prev, state.y, Kx, KTy_c)
+            merit = float(res.max)
+            if history is not None:
+                history.append(
+                    {"iter": it + 1, "merit": merit, **res.as_dict(),
+                     "obj": float(torch.dot(scaled.c, state.x))})
+            if on_iteration is not None:
+                on_iteration(it + 1, merit, accel)
+            if not np.isfinite(merit):
+                # NaN/inf merit: the iterate blew up (NaN fails every
+                # comparison below)
+                status = "diverged"
+                break
+            if merit <= opts.tol:
+                status = "optimal"
+                break
+            if opts.infeasibility_detection and merit > 1e8:
+                status = "diverged"
+                break
+            Kx_b, KTy_b = Kx, KTy_c   # images of the iterate carried on
+            if opts.restart and avg_len > 0:
+                x_avg = x_sum / avg_len
+                y_avg = y_sum / avg_len
+                Kxa = op.fwd(x_avg)
+                KTya = op.adj(y_avg)
+                merit_avg = float(residuals(x_avg, x_avg, y_avg, Kxa,
+                                            KTya).max)
+                if merit_avg < opts.restart_beta * merit_at_restart:
+                    # restart from the (better) averaged iterate
+                    if merit_avg < merit:
+                        state = engine.restart_state(state, x_avg, y_avg)
+                        Kx_b, KTy_b = Kxa, KTya
+                    merit_at_restart = min(merit_avg, merit)
+                    x_sum = torch.zeros_like(state.x)
+                    y_sum = torch.zeros_like(state.y)
+                    avg_len = 0
+                    n_restarts += 1
+                    if adaptive:
+                        # primal-weight rebalance rides restart events
+                        rx, ry = adapt_anchor
+                        tau_n, sigma_n = engine.adaptive_omega_update(
+                            state.tau, state.sigma, state.x - rx,
+                            state.y - ry, T, Sigma, w_lo, w_hi, yes)
+                        state = state._replace(tau=tau_n, sigma=sigma_n)
+                        adapt_anchor = (state.x, state.y)
+            if adaptive:
+                # boundary-only down-only scale safeguard; K(dx)/K^T(dy)
+                # come from the check MVMs by linearity
+                if adapt_prev is not None:
+                    px, py, pKx, pKTy = adapt_prev
+                    tau_n, sigma_n = engine.adaptive_shrink(
+                        state.tau, state.sigma, opts.eta,
+                        state.x - px, state.y - py,
+                        Kx_b - pKx, KTy_b - pKTy, T, Sigma, yes)
+                    state = state._replace(tau=tau_n, sigma=sigma_n)
+                adapt_prev = (state.x, state.y, Kx_b, KTy_b)
+
+    x_orig = scaled.unscale_x(state.x).cpu().numpy()
+    y_orig = scaled.unscale_y(state.y).cpu().numpy()
+    if res is None:
+        res = residuals(state.x, state.x, state.y, op.fwd(state.x),
+                        op.adj(state.y))
+    certificate = None
+    if status == "diverged" and opts.infeasibility_detection:
+        # PDHG's dual iterate diverges along a Farkas ray on primal-
+        # infeasible instances [51]; the diagonal rescaling preserves
+        # certificates
+        cert = check_farkas(np.asarray(lp.K_dense), np.asarray(lp.b),
+                            y_orig, tol=1e-5)
+        if cert.kind != "none":
+            status = "primal_infeasible"
+            certificate = cert
+    return PDHGResult(
+        status=status,
+        x=x_orig,
+        y=y_orig,
+        obj=float(np.asarray(lp.c) @ x_orig),
+        iterations=it + 1,
+        residuals=res,
+        sigma_max=rho,
+        lanczos_iters=lanczos_iters,
+        mvm_calls=accel.stats["mvm_calls"],
+        history=history,
+        restarts=n_restarts,
+        certificate=certificate,
+        merit=float(res.max),
+    )
+
+
 def _norm_estimate(Kf, T, Sigma, opts: PDHGOptions, v0):
     """rho = ||Sigma^1/2 K T^1/2||_2 by Lanczos (or power iteration) on
     the symmetric block M, which exists only inside this call."""
@@ -201,17 +413,13 @@ def solve_jit(
 
     Kf = scaled.K if K_fwd is None else on_dev(K_fwd).contiguous()
     Ka = (Kf.T if K_adj is None else on_dev(K_adj)).contiguous()
+    x0, y0, v0 = place_draws(draws, scaled.lb, scaled.ub)
     if opts.norm_override is not None:
         rho = torch.tensor(float(opts.norm_override), dtype=dt, device=dev)
     else:
-        v0 = None if draws is None or draws.v0 is None else on_dev(draws.v0)
         rho = engine.lemma2_margin(
             _norm_estimate(Kf, T, Sigma, opts, v0), sigma_read)
     generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
-    x0 = y0 = None
-    if draws is not None:
-        x0 = torch.clamp(on_dev(draws.x0), scaled.lb, scaled.ub)
-        y0 = on_dev(draws.y0)
     x, y, it, merit = engine.solve_core(
         Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, rho,
         generator, static, x0=x0, y0=y0)

@@ -8,6 +8,10 @@
 * ``Draws`` holds the random vectors a solve would otherwise draw
   itself.  Torch cannot reproduce JAX's threefry streams, so a parity
   test draws them with the reference and injects them here.
+* ``device_from_reference`` and ``from_reference_encoded`` read a
+  crossbar ``DeviceModel`` and a programmed ``EncodedMatrix`` of the
+  reference by their fields, so a test can hand the reference's
+  conductances to the port.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .lp.problem import SparseCOO, StandardLP
 
 
@@ -63,7 +68,8 @@ def lp_tensors(lp: StandardLP, device, dtype=torch.float64) -> LPTensors:
 
 
 class Draws(NamedTuple):
-    """Injected random vectors for one solve.
+    """Injected random vectors for one solve (``solve_jit``, the host
+    driver ``solve``, ``solve_crossbar_jit`` and its refinement).
 
     ``x0`` (n,) and ``y0`` (m,) are the PDHG start (``x0`` is clipped to
     the scaled bounds, which leaves a reference ``draw_init`` output
@@ -73,3 +79,44 @@ class Draws(NamedTuple):
     x0: object
     y0: object
     v0: Optional[object] = None
+
+
+def place_draws(draws: Optional[Draws], lb: torch.Tensor, ub: torch.Tensor):
+    """``(x0, y0, v0)`` in ``lb``'s dtype on its device, ``x0`` clipped
+    to ``[lb, ub]``; ``None`` for what was not injected."""
+    if draws is None:
+        return None, None, None
+
+    def t(a):
+        return (None if a is None else
+                torch.as_tensor(np.array(a), dtype=lb.dtype, device=lb.device))
+
+    return torch.clamp(t(draws.x0), lb, ub), t(draws.y0), t(draws.v0)
+
+
+def device_from_reference(dev):
+    """The port's crossbar ``DeviceModel`` with the fields of ``dev``."""
+    import dataclasses
+
+    from .crossbar.device import DeviceModel
+
+    return DeviceModel(**{f.name: getattr(dev, f.name)
+                          for f in dataclasses.fields(DeviceModel)})
+
+
+def from_reference_encoded(enc, device=None, dtype=torch.float64):
+    """The port's ``EncodedMatrix`` from the reference's: ``g_pos``,
+    ``g_neg``, ``scale``, ``rows``, ``cols`` and ``fill`` read as numpy,
+    the conductances placed on ``device`` (default: the card) in
+    ``dtype``."""
+    from .crossbar.encode import EncodedMatrix
+
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return EncodedMatrix(
+        g_pos=t(enc.g_pos), g_neg=t(enc.g_neg), scale=float(enc.scale),
+        rows=int(enc.rows), cols=int(enc.cols),
+        device=device_from_reference(enc.device), fill=float(enc.fill))

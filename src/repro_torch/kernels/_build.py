@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled on first use with ``nvcc`` into
-a shared library with a plain C interface and loaded with ``ctypes``.
-The library lands in ``build/repro_torch_kernels/<hash>/`` at the
-repository root, where ``<hash>`` covers the sources and the flags, so
-an edited source is rebuilt and an unchanged one is reused.  A missing
-``nvcc``, a failed build or a failed launch raises: there is no fallback.
-Nothing here runs at import time.
+The sources under ``csrc/`` are compiled on first use with ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``build/repro_torch_kernels/<hash>/`` at the repository root,
+where ``<hash>`` covers the sources and the flags, so an edited source
+is rebuilt and an unchanged one is reused.  A missing ``nvcc``, a failed
+build or a failed launch raises: there is no fallback.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -23,18 +24,21 @@ from typing import NamedTuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pdhg_kernels.cu",)
+SOURCES = ("pdhg_kernels.cu", "crossbar_mvm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpdhg_kernels.so"
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes of the _f32/_f64 pair (pointers, sizes, stream last)
-    "pdhg_dual_update": [_P] * 6 + [ctypes.c_longlong, _P],
-    "pdhg_primal_update": [_P] * 10 + [ctypes.c_longlong, _P],
+    "pdhg_dual_update": [_P] * 6 + [_LL, _P],
+    "pdhg_primal_update": [_P] * 10 + [_LL, _P],
     "pdhg_fused_dense": ([_P] * 18 + [ctypes.c_int] * 3
                          + [ctypes.c_double, _P]),
+    # G+, G-, v, gain, out; R, C; batch; batch strides of G, v, gain/out
+    "crossbar_mvm": [_P] * 5 + [_LL, _LL, ctypes.c_int] + [_LL] * 3 + [_P],
 }
 
 
@@ -81,18 +85,38 @@ def build(verbose: bool = False) -> BuildResult:
     if lib.exists():
         return BuildResult(lib, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    objs = [out_dir / f".{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all running at once
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(o),
+                         str(CSRC / s)] for s, o in zip(SOURCES, objs))]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)        # atomic: concurrent builders never see half
-    return BuildResult(lib, seconds, proc.stdout + proc.stderr)
+    return BuildResult(lib, seconds, "".join(log))
 
 
 @functools.lru_cache(maxsize=None)

@@ -38,6 +38,54 @@ def reference_draws(lp, opts):
     return Draws(np.asarray(x0), np.asarray(y0), np.asarray(v0))
 
 
+def reference_host_draws(lp, opts):
+    """The draws of the reference's host driver ``pdhg.solve``: from
+    ``key = PRNGKey(opts.seed)``, ``key, sub = split(key)`` feeds the
+    Lanczos start (``lanczos_svd`` splits ``sub`` once more and draws
+    ``normal(sub', (m + n,))``; skipped under ``norm_override``), then
+    ``key, kx, ky = split(key, 3)`` draws x0 (clipped to the scaled
+    bounds) and y0 (``pdhg.py:172,194,218-221``, ``lanczos.py:62-63``).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.interop import Draws
+
+    _, pdhg = reference()
+    scaled, _, _ = pdhg.prepare(lp, opts)
+    m, n = scaled.K.shape
+    dt = scaled.K.dtype
+    key = jax.random.PRNGKey(opts.seed)
+    v0 = None
+    if opts.norm_override is None:
+        key, sub = jax.random.split(key)
+        _, sub = jax.random.split(sub)
+        v0 = np.asarray(jax.random.normal(sub, (m + n,)))
+    key, kx, ky = jax.random.split(key, 3)
+    x0 = jnp.clip(jax.random.normal(kx, (n,), dtype=dt), scaled.lb,
+                  scaled.ub)
+    y0 = jax.random.normal(ky, (m,), dtype=dt)
+    return Draws(np.asarray(x0), np.asarray(y0), v0)
+
+
+def noiseless_device(dev):
+    """A crossbar device (either package's) with no programming or read
+    noise: encoding is quantization only, deterministic on both sides."""
+    return dataclasses.replace(dev, sigma_program=0.0, sigma_read=0.0)
+
+
+def assert_ledgers_equal(port, ref):
+    """Every ledger field: counters equal, energies and latencies to
+    rtol 1e-12 (the same sums in the same order on both sides)."""
+    for f in dataclasses.fields(ref):
+        p, r = getattr(port, f.name), getattr(ref, f.name)
+        if isinstance(r, int):
+            assert p == r, f.name
+        else:
+            np.testing.assert_allclose(p, r, rtol=1e-12, atol=0,
+                                       err_msg=f.name)
+
+
 def port_options(ref_opts, **overrides):
     """The port's ``PDHGOptions`` with the reference's field values
     (update-backend names mapped), then ``overrides``."""

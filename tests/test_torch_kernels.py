@@ -1,9 +1,9 @@
-"""The port's kernels B1-B3.
+"""The port's kernels B1-B3 and B6.
 
 On the CPU: each plain version against the reference's Pallas kernel run
 in interpret mode (f64 to 1e-15 for the elementwise updates, 1e-12 for a
-check window; f32 to 1e-6), and the wrappers' rule that only a CPU
-tensor takes the plain version.  On a card (``cuda`` marker, skipped
+check window; f32 to 1e-6; B6's in ``test_torch_crossbar.py``), and the
+wrappers' rule that only a CPU tensor takes the plain version.  On a card (``cuda`` marker, skipped
 without one): each CUDA kernel against its plain version on the same
 inputs, and its launch counter.
 """
@@ -123,7 +123,8 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
         torch.testing.assert_close(o, r, rtol=0, atol=0)
     # plain versions are not launches
     assert kernels.launch_counts() == {"dual_update": 0, "primal_update": 0,
-                                       "fused_dense_steps": 0}
+                                       "fused_dense_steps": 0,
+                                       "crossbar_mvm": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -178,7 +179,8 @@ def test_update_kernels_match_plain_on_card(cuda, dtype, tol, d):
     assert _rel(outs, refs) <= tol
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"dual_update": 1, "primal_update": 1,
-                                       "fused_dense_steps": 0}
+                                       "fused_dense_steps": 0,
+                                       "crossbar_mvm": 0}
 
 
 @pytest.mark.cuda
@@ -205,3 +207,71 @@ def test_kernels_refuse_mixed_operands(cuda):
         tupd.dual_update(v, v.double(), v, v, s)
     with pytest.raises(TypeError, match="0-d tensors"):
         tupd.dual_update(v, v, v, v, 0.5)
+
+
+# B6: tolerance over each output's largest |value|; the kernel sums a
+# row in warp-strided order, the plain version in cuBLAS's, over up to
+# 2048 terms here (11520 in chip_smoke.py, with the same bounds)
+B6_TOLS = [(torch.float64, 1e-13), (torch.float32, 1e-5)]
+
+
+def _b6(dev, dtype, shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R, C = shape[-2:]
+    lead = shape[:-2]
+    gp = torch.rand(shape, generator=g, dtype=dtype, device=dev)
+    gn = torch.rand(shape, generator=g, dtype=dtype, device=dev)
+    v = torch.randn((*lead, C), generator=g, dtype=dtype, device=dev)
+    noise = 1e-3 * torch.randn((*lead, R), generator=g, dtype=dtype,
+                               device=dev)
+    return gp, gn, v, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", B6_TOLS, ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", [(777, 1235), (1, 3), (512, 2048),
+                                   (3, 777, 1235), (3, 256, 2048)],
+                         ids=["ragged", "tiny", "aligned", "batch3-ragged",
+                              "batch3-aligned"])
+def test_crossbar_mvm_kernel_matches_plain_on_card(cuda, dtype, tol, shape):
+    from repro_torch.kernels import crossbar_mvm as xb
+
+    gp, gn, v, noise = _b6(cuda, dtype, shape)
+    scale = (torch.tensor([0.5, 1.0, 2.0], dtype=dtype, device=cuda)
+             if len(shape) == 3 else 0.83)
+    kernels.reset_launch_counts()
+    out = xb.crossbar_mvm(gp, gn, v, scale, noise)
+    ref = xb.crossbar_mvm_plain(gp, gn, v, scale, noise)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert _rel([out], [ref]) <= tol
+    assert kernels.launch_counts()["crossbar_mvm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", B6_TOLS, ids=["f64", "f32"])
+def test_crossbar_mvm_kernel_zero_padding_is_inert(cuda, dtype, tol):
+    from repro_torch.kernels import crossbar_mvm as xb
+
+    gp, gn, v, noise = _b6(cuda, dtype, (300, 500), seed=1)
+    base = xb.crossbar_mvm(gp, gn, v, 0.7, noise)
+    pad = torch.nn.functional.pad
+    out = xb.crossbar_mvm(pad(gp, (0, 12, 0, 84)), pad(gn, (0, 12, 0, 84)),
+                          pad(v, (0, 12)), 0.7, pad(noise, (0, 84)))
+    torch.cuda.synchronize()
+    assert _rel([out[:300]], [base]) <= tol
+    assert torch.all(out[300:] == 0.0)
+
+
+@pytest.mark.cuda
+def test_crossbar_mvm_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels import crossbar_mvm as xb
+
+    gp, gn, v, noise = _b6(cuda, torch.float64, (8, 16))
+    with pytest.raises(ValueError, match="v must be"):
+        xb.crossbar_mvm(gp, gn, v[:5], 1.0, noise)
+    with pytest.raises(TypeError):
+        xb.crossbar_mvm(gp, gn.float(), v, 1.0, noise)
+    with pytest.raises(ValueError, match="contiguous"):
+        xb.crossbar_mvm(gp.T, gn.T, v[:8], 1.0, torch.zeros(
+            16, dtype=torch.float64, device=cuda))

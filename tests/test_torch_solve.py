@@ -110,8 +110,7 @@ def test_cli_solves_the_default_instance_on_cpu():
     assert "status=optimal" in out.stdout
 
 
-@pytest.mark.parametrize("backend,item", [("taox", "A4"), ("epiram", "A4"),
-                                          ("batch", "A5"),
+@pytest.mark.parametrize("backend,item", [("batch", "A5"),
                                           ("distributed", "A6")])
 def test_cli_names_the_roadmap_item_of_unported_backends(capsys, backend,
                                                          item):
