@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                 # the whole check, one card
+    python3 chip_smoke.py --probe 128,96,64
+        # only the full-width sparse stream, stepped, within the CLI's
+        # 40000 iterations, at each scale of the stream shapes, to find
+        # the largest at which every instance reaches tol (prints one
+        # "probe" line a scale)
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -10,7 +15,8 @@ Phases, in order; any failure raises and exits non-zero:
    (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card, in
    f64 and f32, at a ragged size and at the main path's shape (B6 also
-   with a batch of 3 and with zero padding), timed with CUDA events
+   with a batch of 3 and with zero padding; B4 and B5 also with a batch
+   of 3 and at width 0; B1-B3 also batched), timed with CUDA events
    beside the plain version and a yardstick;
 4. the dense path: the CLI default (``gen-ip002``), then the full-width
    dense instance solved twice, stepped (B1/B2 every step) and with the
@@ -23,7 +29,16 @@ Phases, in order; any failure raises and exits non-zero:
    objective band); then at full width, TaOx-HfOx in f64, the host
    driver with B6 on every MVM, the same driver for 200 iterations with
    and without B6 (the two ``x`` within 1e-9), and ``solve_crossbar_jit``.
-   Each path's launch counts are read on their own.
+   Each path's launch counts are read on their own;
+6. the small batch streams through the CLI (``--backend batch``: dense
+   stepped and with ``--megakernel``, ``--sparse``, and ``--device taox
+   --kernel cuda`` with B6 batched);
+7. the full-width sparse stream (16 MIPLIB-2017-class LP relaxations in
+   two ELL width buckets: (64, 32) with 16 lanes, 12 real and 4 filler,
+   and (64, 64) with 4) through ``BatchSolver``: stepped (B4 on every
+   MVM, B1/B2 every step), then with the megakernel (B5 every window),
+   the same iterations and ``x`` within 1e-8, every launch counted, and
+   a warm pass that builds nothing.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -67,28 +82,62 @@ PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 #  B3:    100 steps; the dot products sum in another order than cuBLAS
 #  B6:    one row sum of up to 11520 terms, warp-strided in the kernel
 #         and in cuBLAS's order in the plain version
+#  B4:    one row sum of up to 64 ELL slots, group-strided in the kernel
+#         and in torch's order in the plain version
+#  B5:    100 steps of B4's row sums and B1/B2's algebra, as B3
 TOLS = {
     ("dual_update", "float64"): 1e-14, ("dual_update", "float32"): 1e-6,
     ("primal_update", "float64"): 1e-14, ("primal_update", "float32"): 1e-6,
     ("fused_dense_steps", "float64"): 1e-12,
     ("fused_dense_steps", "float32"): 1e-5,
+    ("ell_matvec", "float64"): 1e-13, ("ell_matvec", "float32"): 1e-5,
+    ("fused_ell_steps", "float64"): 1e-12,
+    ("fused_ell_steps", "float32"): 1e-5,
     ("crossbar_mvm", "float64"): 1e-13, ("crossbar_mvm", "float32"): 1e-5,
 }
 
 KERNEL_NAMES = ("dual_update", "primal_update", "fused_dense_steps",
-                "crossbar_mvm")
+                "ell_matvec", "fused_ell_steps", "crossbar_mvm")
 SOURCES = {
     "dual_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "primal_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "fused_dense_steps": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "ell_matvec": "src/repro_torch/kernels/csrc/sparse_mvm.cu",
+    "fused_ell_steps": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "crossbar_mvm": "src/repro_torch/kernels/csrc/crossbar_mvm.cu",
 }
 REPLACES = {
     "dual_update": "src/repro/kernels/pdhg_update.py:45",
     "primal_update": "src/repro/kernels/pdhg_update.py:34",
     "fused_dense_steps": "src/repro/kernels/pdhg_megakernel.py:74",
+    "ell_matvec": "src/repro/kernels/sparse_mvm.py:119",
+    "fused_ell_steps": "src/repro/kernels/pdhg_megakernel.py:95",
     "crossbar_mvm": "src/repro/kernels/crossbar_mvm.py:41",
 }
+
+# the full-width sparse stream: the reference's SPARSE_STREAM_SHAPES
+# scaled up (MIPLIB-2017-class relaxations run 1e4-1e6 nonzeros at
+# fractions of a percent density), 16 instances, seeds 0-15, f64,
+# tol=1e-6, check_every=100; probed with ``--probe``
+STREAM_SCALE = 128
+STREAM_INSTANCES = 16
+STREAM_DENSITY = 1e-3
+# no scale of 128, 96, 64, 48, 32, 24 or 16 brings every instance to tol
+# within the CLI's 40000 iterations (fixed or adaptive steps); at 128
+# every one gets there within 160000 (the slowest in 111400), so the
+# stream keeps its full scale and takes that budget (PERF.md, "Cells")
+STREAM_MAX_ITERS = 160000
+# the small streams of the CLI (the reference's documented specs)
+SMALL_DENSE = "rand:8x14,rand:10x18,rand:24x40"
+SMALL_SPARSE = "sprand:96x192:0.05,sprand:128x256:0.02"
+SMALL_STREAM_CROSSBAR_ITERS = 10000
+
+
+def launches(**nonzero) -> dict:
+    """Every kernel's expected launch count: 0 unless given."""
+    out = {name: 0 for name in KERNEL_NAMES}
+    out.update(nonzero)
+    return out
 
 # the crossbar paths: gen-ip002 through the CLI and the host driver
 # (iteration budgets cut from the CLI's 40000: the crossbar's noise floor
@@ -195,7 +244,8 @@ def _bounds(g, d, dt):
     import torch
 
     inf = torch.tensor(float("inf"), dtype=dt, device="cuda")
-    kind = torch.randint(0, 3, (d,), generator=g, device="cuda")
+    kind = torch.randint(0, 3, d if isinstance(d, tuple) else (d,),
+                         generator=g, device="cuda")
     lb = torch.where(kind == 0, _vec(g, d, dt, -1.0, -0.1),
                      torch.where(kind == 1, torch.zeros_like(inf), -inf))
     ub = torch.where(kind == 0, _vec(g, d, dt, 0.1, 1.0), inf)
@@ -475,9 +525,8 @@ def phase_main(instance: str):
     print(f"main cli gen-ip002: launches={cli_counts}", flush=True)
     check(res0.status == "optimal" and rel0 <= 1e-4,
           f"gen-ip002: {res0.status}, rel err {rel0:.3e}")
-    want0 = {"dual_update": res0.iterations,
-             "primal_update": res0.iterations, "fused_dense_steps": 0,
-             "crossbar_mvm": 0}
+    want0 = launches(dual_update=res0.iterations,
+                     primal_update=res0.iterations)
     check(cli_counts == want0,
           f"gen-ip002 launches {cli_counts}, expected {want0}")
     counts = {"cli gen-ip002": cli_counts}
@@ -504,12 +553,10 @@ def phase_main(instance: str):
             res.iterations, CHECK_EVERY, opts.lanczos_iters, restart=True),
             f"{instance} {label}: mvm_calls {res.mvm_calls}")
         windows = res.iterations // CHECK_EVERY
-        want = ({"dual_update": res.iterations,
-                 "primal_update": res.iterations, "fused_dense_steps": 0,
-                 "crossbar_mvm": 0}
+        want = (launches(dual_update=res.iterations,
+                         primal_update=res.iterations)
                 if label == "stepped" else
-                {"dual_update": 0, "primal_update": 0,
-                 "fused_dense_steps": windows, "crossbar_mvm": 0})
+                launches(fused_dense_steps=windows))
         check(delta == want, f"{instance} {label}: launches {delta}, "
                              f"expected {want}")
         results[label] = (res, wall)
@@ -569,9 +616,8 @@ def phase_crossbar(instance: str):
               f"mvm_calls={res.mvm_calls} wall_s={wall:.3f} "
               f"max_memory_allocated={peak} launches={delta}", flush=True)
         band(label, res)
-        want = {"dual_update": res.iterations,
-                "primal_update": res.iterations, "fused_dense_steps": 0,
-                "crossbar_mvm": 0}
+        want = launches(dual_update=res.iterations,
+                        primal_update=res.iterations)
         check(delta == want, f"{label}: launches {delta}, expected {want}")
         counts[label] = delta
 
@@ -591,9 +637,9 @@ def phase_crossbar(instance: str):
         check(res.mvm_calls == led.mvm_count,
               f"{label}: mvm_calls {res.mvm_calls} != ledger "
               f"{led.mvm_count}")
-        want = {"dual_update": res.iterations,
-                "primal_update": res.iterations, "fused_dense_steps": 0,
-                "crossbar_mvm": res.mvm_calls if use_kernel else 0}
+        want = launches(dual_update=res.iterations,
+                        primal_update=res.iterations,
+                        crossbar_mvm=res.mvm_calls if use_kernel else 0)
         check(delta == want, f"{label}: launches {delta}, expected {want}")
         counts[label] = delta
         return res
@@ -639,22 +685,459 @@ def phase_crossbar(instance: str):
           f"jit full: cells_written {led.cells_written} != 2*{dim}^2")
     check(led.mvm_count == r.mvm_calls and np.isfinite(r.merit),
           f"jit full: mvm_count {led.mvm_count}, mvm_calls {r.mvm_calls}")
-    check(delta == {"dual_update": r.iterations,
-                    "primal_update": r.iterations, "fused_dense_steps": 0,
-                    "crossbar_mvm": 0}, f"jit full: launches {delta}")
+    check(delta == launches(dual_update=r.iterations,
+                            primal_update=r.iterations),
+          f"jit full: launches {delta}")
     counts["jit full"] = delta
+    return counts
+
+
+# ------------------------------------------------- the sparse stream ---
+
+def stream_instances(scale: int):
+    """The full-width sparse stream at ``scale`` times the reference's
+    stream shapes, generated on the host (set-up)."""
+    from repro_torch.lp import SPARSE_STREAM_SHAPES, sparse_lp_stream
+
+    shapes = [(scale * m, scale * n) for m, n in SPARSE_STREAM_SHAPES]
+    return sparse_lp_stream(STREAM_INSTANCES, shapes,
+                            density=STREAM_DENSITY, seed=0)
+
+
+def stream_options(**kw):
+    from repro_torch.core.pdhg import PDHGOptions
+
+    kw = {"max_iters": STREAM_MAX_ITERS, **kw}
+    return PDHGOptions(tol=TOL, check_every=CHECK_EVERY, **kw)
+
+
+def main_bucket(lps):
+    """The stream's largest ELL bucket, stacked as the solver stacks it:
+    ``(signature, stacked numpy arrays)``."""
+    from repro_torch.runtime import BatchSolver
+    from repro_torch.runtime.batch import stack_problems_ell
+
+    solver = BatchSolver(stream_options())
+    buckets = solver._group_buckets(lps)
+    ((mb, nb), sig), idxs = max(buckets.items(), key=lambda kv: len(kv[1]))
+    group = [lps[i] for i in idxs]
+    B = solver._padded_batch(len(group))
+    group += [group[0]] * (B - len(group))
+    return ((mb, nb), sig, B), stack_problems_ell(group, m=mb, n=nb,
+                                                  wf=sig[1], wa=sig[2])
+
+
+def _ell_forms(rng, B, m, n, W):
+    """B random sparse K (about W entries a row, ||K|| ~ 1) as both ELL
+    forms, built from the same COO (numpy)."""
+    import numpy as np
+
+    from repro_torch.kernels.sparse_mvm import ell_from_coo
+
+    forms = []
+    for _ in range(B):
+        K = (rng.normal(size=(m, n)) * (rng.random((m, n)) < W / n)
+             / (W ** 0.5))
+        r, c = K.nonzero()
+        forms.append((ell_from_coo(K[r, c], r, c, (m, n)),
+                      ell_from_coo(K[r, c], c, r, (n, m))))
+    wf = max(f[0][0].shape[1] for f in forms)
+    wa = max(f[1][0].shape[1] for f in forms)
+
+    def pad(a, w):
+        return np.pad(a, ((0, 0), (0, w - a.shape[1])))
+
+    return (np.stack([pad(f[0][0], wf) for f in forms]),
+            np.stack([pad(f[0][1], wf) for f in forms]),
+            np.stack([pad(f[1][0], wa) for f in forms]),
+            np.stack([pad(f[1][1], wa) for f in forms]))
+
+
+def _ell_window(forms, dt, g):
+    """A well-posed ELL window on the card from the numpy ``forms``:
+    Pock–Chambolle diagonals from the forms' row sums (at most 1, so an
+    empty row of a padded lane stays bounded), per-lane steps of 0.9, a
+    start inside the bounds."""
+    import torch
+
+    df, cf, da, ca = (torch.as_tensor(a, device="cuda") for a in forms)
+    df, da = df.to(dt), da.to(dt)
+    B, m, n = df.shape[0], df.shape[1], da.shape[1]
+    Sigma = 1.0 / torch.clamp(df.abs().sum(-1), min=1.0)
+    T = 1.0 / torch.clamp(da.abs().sum(-1), min=1.0)
+    lb, ub = _bounds(g, (B, n), dt)
+    x = torch.clamp(_vec(g, (B, n), dt), lb, ub)
+    return dict(data_f=df, cols_f=cf.int(), data_a=da, cols_a=ca.int(),
+                b=_vec(g, (B, m), dt), c=_vec(g, (B, n), dt), lb=lb, ub=ub,
+                T=T, Sigma=Sigma, x=x, x_prev=x.clone(), x_bar=x.clone(),
+                y=_vec(g, (B, m), dt),
+                tau=torch.full((B,), 0.9, dtype=dt, device="cuda"),
+                sigma=torch.full((B,), 0.9, dtype=dt, device="cuda"))
+
+
+def phase_ell_kernels(bucket, steps: int):
+    """B4 and B5 against their plain versions (ragged, a batch of 3,
+    width 0 and the main bucket), and B1-B3 batched; times at the main
+    bucket go into the JSON line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import pdhg_megakernel as mk
+    from repro_torch.kernels import pdhg_update as upd
+    from repro_torch.kernels import sparse_mvm as sm
+
+    (mb, nb), sig, B = bucket[0]
+    rng = np.random.default_rng(99)
+    g = torch.Generator(device="cuda").manual_seed(99)
+    rows = {"ell_matvec": [], "fused_ell_steps": [], "batched": []}
+    cases = (("ragged", _ell_forms(rng, 1, 777, 1235, 13)),
+             ("batch3", _ell_forms(rng, 3, 300, 517, 7)),
+             ("width0", tuple(np.zeros((2, d, 0), t) for d, t in
+                              ((6, np.float64), (6, np.int32),
+                               (10, np.float64), (10, np.int32)))),
+             ("main", tuple(bucket[1][:4])))
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        size = torch.finfo(dt).bits // 8
+        for tag, forms in cases:
+            w = _ell_window(forms, dt, g)
+            if tag == "ragged":         # no batch axis
+                w = {k: v[0] for k, v in w.items()}
+            df, cf, da, ca = (w[k] for k in ("data_f", "cols_f", "data_a",
+                                             "cols_a"))
+            Bl = df.shape[0] if df.dim() == 3 else 1
+            (m, W), (n, Wa) = df.shape[-2:], da.shape[-2:]
+            # B4, forward and adjoint
+            outs = [sm.ell_matvec(df, cf, w["x"]),
+                    sm.ell_matvec(da, ca, w["y"])]
+            refs = [sm.ell_matvec_plain(df, cf, w["x"]),
+                    sm.ell_matvec_plain(da, ca, w["y"])]
+            torch.cuda.synchronize()
+            if W == 0:
+                err, rel = max(float(o.abs().max()) for o in outs), 0.0
+                check(err == 0.0, f"ell_matvec {dname} width 0: {err}")
+            else:
+                err, rel = max_err(outs, refs)
+            row = dict(dtype=dname, shape=[Bl, m, W], tag=tag,
+                       max_abs_err=err, rel_err=rel)
+            rows["ell_matvec"].append(row)
+            check(rel <= TOLS[("ell_matvec", dname)],
+                  f"ell_matvec {dname} {tag}: rel err {rel:.3e}")
+            if tag == "main":
+                nnz = int((df != 0).sum())
+                csr = torch.sparse_coo_tensor(
+                    torch.stack([
+                        (torch.arange(Bl * m, device="cuda")
+                         .repeat_interleave(W)),
+                        (cf.long() + (torch.arange(Bl, device="cuda") * n)
+                         .view(-1, 1, 1)).reshape(-1)]),
+                    df.reshape(-1), (Bl * m, Bl * n),
+                    check_invariants=False).coalesce()
+                keep = csr.values() != 0
+                csr = torch.sparse_coo_tensor(
+                    csr.indices()[:, keep], csr.values()[keep], csr.shape,
+                    check_invariants=False).coalesce().to_sparse_csr()
+                xv = w["x"].reshape(-1, 1)
+                lib = csr @ xv
+                check(max_err([lib.view(Bl, m)], [refs[0]])[1]
+                      <= TOLS[("ell_matvec", dname)],
+                      f"ell_matvec {dname}: cuSPARSE disagrees")
+                # reads data, cols, v once; writes w
+                row.update(
+                    ms=cuda_ms(lambda: sm.ell_matvec(df, cf, w["x"]),
+                               reps=20, inner=10),
+                    adjoint_ms=cuda_ms(lambda: sm.ell_matvec(
+                        da, ca, w["y"]), reps=20, inner=10),
+                    plain_ms=cuda_ms(lambda: sm.ell_matvec_plain(
+                        df, cf, w["x"]), reps=5, inner=2),
+                    library_ms=cuda_ms(lambda: csr @ xv, reps=20, inner=10),
+                    nnz=nnz,
+                    nnz_bound_ms=bound_ms(nnz * (size + 4), 2 * nnz,
+                                          dname)[0],
+                    bound=bound_ms(Bl * m * W * (size + 4)
+                                   + Bl * (n + m) * size,
+                                   2 * Bl * m * W, dname))
+            # B5, with and without the theta schedule
+            for gamma in (0.0, 0.05):
+                outs = mk.fused_ell_steps(**w, n_steps=steps, gamma=gamma)
+                refs = mk.fused_ell_steps_plain(**w, n_steps=steps,
+                                                gamma=gamma)
+                torch.cuda.synchronize()
+                err, rel = max_err(outs, refs)
+                rows["fused_ell_steps"].append(dict(
+                    dtype=dname, shape=[Bl, m, n, W, Wa], tag=tag,
+                    steps=steps, gamma=gamma, max_abs_err=err, rel_err=rel))
+                check(rel <= TOLS[("fused_ell_steps", dname)],
+                      f"fused_ell_steps {dname} {tag} gamma={gamma}: "
+                      f"rel err {rel:.3e}")
+            if tag == "main":
+                op = engine.sparse_ell_operator(df, cf, da, ca)
+                state0 = engine.PDHGState(w["x"], w["x_prev"], w["x_bar"],
+                                          w["y"], w["tau"], w["sigma"])
+                vec_args = (w["b"], w["c"], w["lb"], w["ub"], w["T"],
+                            w["Sigma"])
+
+                def stepped():
+                    # yardstick: the stepped ELL window, B4 + B1 + B4 + B2
+                    s, xs, ys = state0, 0.0, 0.0
+                    for _ in range(steps):
+                        s = engine.pdhg_step(op, engine.CUDA_UPDATES,
+                                             *vec_args, 0.0, s)
+                        xs, ys = xs + s.x, ys + s.y
+                    return s, xs, ys
+
+                ell_bytes = Bl * (m * W + n * Wa) * (size + 4)
+                # reads both ELL forms, b, Sigma, y, c, lb, ub, T, x,
+                # x_bar, tau, sigma once; writes x, x_prev, x_bar, the x
+                # sum, y, the y sum, tau, sigma
+                vecs = Bl * ((3 * m + 6 * n + 2) + (4 * n + 2 * m + 2))
+                rows["fused_ell_steps"][-1].update(
+                    ms=cuda_ms(lambda: mk.fused_ell_steps(
+                        **w, n_steps=steps, gamma=0.05), reps=10),
+                    plain_ms=cuda_ms(lambda: mk.fused_ell_steps_plain(
+                        **w, n_steps=steps, gamma=0.05), reps=3, warmup=1),
+                    library_ms=None,
+                    yardstick_ms=cuda_ms(stepped, reps=5, warmup=1),
+                    reread_floor_ms=1e3 * steps * ell_bytes
+                    / HBM_BYTES_PER_S,
+                    bound=bound_ms(
+                        ell_bytes + vecs * size,
+                        steps * Bl * (2 * m * W + 2 * n * Wa + 4 * m
+                                      + 9 * n), dname))
+            del w
+        # B1-B3 with a batch axis against their plain versions
+        lanes = torch.arange(1, B + 1, dtype=dt, device="cuda")
+        y, kx, b, S = (_vec(g, (B, mb), dt) for _ in range(4))
+        sigma = 0.1 * lanes
+        out = upd.dual_update(y, kx, b, S, sigma)
+        err, rel = max_err([out], [upd.dual_update_plain(y, kx, b, S,
+                                                         sigma)])
+        rows["batched"].append(dict(kernel="dual_update", dtype=dname,
+                                    shape=[B, mb], max_abs_err=err,
+                                    rel_err=rel))
+        check(rel <= TOLS[("dual_update", dname)],
+              f"batched dual_update {dname}: rel err {rel:.3e}")
+        x, kty, c = (_vec(g, (B, nb), dt) for _ in range(3))
+        T = _vec(g, (B, nb), dt, 0.5, 1.0)
+        lb, ub = _bounds(g, (B, nb), dt)
+        tau, theta = 0.05 * lanes, 1.0 / lanes
+        outs = upd.primal_update(x, kty, c, T, lb, ub, tau, theta)
+        err, rel = max_err(outs, upd.primal_update_plain(
+            x, kty, c, T, lb, ub, tau, theta))
+        rows["batched"].append(dict(kernel="primal_update", dtype=dname,
+                                    shape=[B, nb], max_abs_err=err,
+                                    rel_err=rel))
+        check(rel <= TOLS[("primal_update", dname)],
+              f"batched primal_update {dname}: rel err {rel:.3e}")
+        wd = _window_inputs(g, 4 * 1024, 2048, dt)
+        wd = {k: (v.view(4, 1024, 2048) if k == "K" else v)
+              for k, v in wd.items()}
+        bw = dict(K=wd["K"], K_adj=wd["K"].transpose(1, 2).contiguous(),
+                  tau=torch.full((4,), 0.3, dtype=dt, device="cuda"),
+                  sigma=torch.full((4,), 0.3, dtype=dt, device="cuda"))
+        for k, d in (("b", 1024), ("Sigma", 1024), ("y", 1024),
+                     ("c", 2048), ("lb", 2048), ("ub", 2048), ("T", 2048),
+                     ("x", 2048), ("x_prev", 2048), ("x_bar", 2048)):
+            src = wd[k]
+            bw[k] = (src.view(4, d) if src.numel() == 4 * d
+                     else torch.stack([src] * 4))
+        outs = mk.fused_dense_steps(**bw, n_steps=steps, gamma=0.05)
+        refs = mk.fused_dense_steps_plain(**bw, n_steps=steps, gamma=0.05)
+        torch.cuda.synchronize()
+        err, rel = max_err(outs, refs)
+        rows["batched"].append(dict(kernel="fused_dense_steps", dtype=dname,
+                                    shape=[4, 1024, 2048], max_abs_err=err,
+                                    rel_err=rel))
+        check(rel <= TOLS[("fused_dense_steps", dname)],
+              f"batched fused_dense_steps {dname}: rel err {rel:.3e}")
+    for name in ("ell_matvec", "fused_ell_steps"):
+        for r in rows[name]:
+            print(f"kernel {name} {r['dtype']} {r['tag']} shape={r['shape']}"
+                  + (f" gamma={r['gamma']}" if "gamma" in r else "")
+                  + f" max_abs_err={r['max_abs_err']:.3e}"
+                  f" rel_err={r['rel_err']:.3e}"
+                  + (f" ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f}"
+                     f" bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+                     if "ms" in r else "")
+                  + (f" adjoint_ms={r['adjoint_ms']:.6f}"
+                     f" library_ms={r['library_ms']:.6f}"
+                     f" nnz={r['nnz']} nnz_bound_ms={r['nnz_bound_ms']:.6f}"
+                     if "adjoint_ms" in r else "")
+                  + (f" yardstick_ms={r['yardstick_ms']:.6f}"
+                     f" reread_floor_ms={r['reread_floor_ms']:.6f}"
+                     if "yardstick_ms" in r else ""), flush=True)
+    for r in rows["batched"]:
+        print(f"kernel batched {r['kernel']} {r['dtype']} shape={r['shape']}"
+              f" max_abs_err={r['max_abs_err']:.3e}"
+              f" rel_err={r['rel_err']:.3e}", flush=True)
+    return rows
+
+
+def phase_small_streams():
+    """The reference's small batch streams through the port's CLI; each
+    path's launch counts are read on their own."""
+    from repro_torch.launch import solve as cli
+
+    counts = {}
+
+    def run(label, args):
+        (out, wall, peak), delta = _counted(lambda: _timed(
+            lambda: cli.main(["--backend", "batch", *args])))
+        print(f"stream {label}: wall_s={wall:.3f} max_memory_allocated="
+              f"{peak} launches={delta}", flush=True)
+        counts[label] = delta
+        return out, delta
+
+    specs = SMALL_DENSE.split(",")
+    lps = [cli.load_instance(s, seed=i) for i, s in enumerate(specs)]
+
+    def exact(label, out):
+        for lp, r in zip(lps, out):
+            rel = abs(r.obj - lp.obj_opt) / abs(lp.obj_opt)
+            check(r.status == "optimal" and rel <= 1e-4,
+                  f"{label} {lp.name}: {r.status}, rel err {rel:.3e}")
+
+    out, d = run("small dense", ["--instances", SMALL_DENSE])
+    exact("small dense", out)
+    check(d["dual_update"] == d["primal_update"] > 0
+          and d["dual_update"] % CHECK_EVERY == 0
+          and d["fused_dense_steps"] == d["ell_matvec"] == 0,
+          f"small dense: launches {d}")
+    out, d = run("small dense megakernel",
+                 ["--instances", SMALL_DENSE, "--megakernel"])
+    exact("small dense megakernel", out)
+    check(d["fused_dense_steps"] > 0 and d["dual_update"] == 0,
+          f"small dense megakernel: launches {d}")
+    sp_specs = SMALL_SPARSE.split(",")
+    sp_lps = [cli.load_instance(s, seed=i) for i, s in enumerate(sp_specs)]
+    # at tol=1e-6 sprand:128x256:0.02 stops at iteration_limit within
+    # 40000 iterations in the reference too; tol=1e-4 is the reference's
+    # own recipe for this stream
+    out, d = run("small sparse", ["--sparse", "--instances", SMALL_SPARSE,
+                                  "--tol", "1e-4"])
+    for lp, r in zip(sp_lps, out):
+        rel = abs(r.obj - lp.obj_opt) / abs(lp.obj_opt)
+        check(r.status == "optimal" and rel <= 1e-4,
+              f"small sparse {lp.name}: {r.status}, rel err {rel:.3e}")
+    check(d["ell_matvec"] > 0 and d["dual_update"] > 0
+          and d["fused_ell_steps"] == 0, f"small sparse: launches {d}")
+    # with two refinement rounds: without them rand:10x18's read-noise
+    # floor straddles the 5e-2 band (3e-2 to 7e-2 over eight seeds on the
+    # CPU, 4.6e-2 in the reference; PERF.md), and the refined batched path
+    # is the one that reads B6 most
+    out, d = run("small taox", ["--device", "taox", "--kernel", "cuda",
+                                "--instances", SMALL_DENSE, "--max-iters",
+                                str(SMALL_STREAM_CROSSBAR_ITERS),
+                                "--refine-rounds", "2"])
+    for lp, rep in zip(lps, out):
+        rel = abs(rep.result.obj - lp.obj_opt) / abs(lp.obj_opt)
+        print(f"stream small taox {lp.name}: objective="
+              f"{rep.result.obj:.9f} known={lp.obj_opt:.9f} rel_err="
+              f"{rel:.3e} executed_iterations={rep.executed_iterations}",
+              flush=True)
+        check(rel <= OBJ_BAND, f"small taox {lp.name}: rel err {rel:.3e} "
+                               f"outside {OBJ_BAND}")
+    check(d["crossbar_mvm"] > 0 and d["dual_update"] > 0,
+          f"small taox: launches {d}")
+    return counts
+
+
+def _stream_run(label, solver, lps):
+    """One counted pass of the stream; returns (results, launches,
+    stats, wall)."""
+    (res, wall, peak), delta = _counted(lambda: _timed(
+        lambda: solver.solve_stream(lps)))
+    st = solver.last_stream_stats
+    windows = [(b["bucket"][1], b["lanes"], b["windows"])
+               for b in st["bucket_windows"]]
+    print(f"stream {label}: wall_s={wall:.3f} max_memory_allocated={peak} "
+          f"compiles={st['compiles']} windows={windows} launches={delta}",
+          flush=True)
+    print(f"stream {label}: stream: buckets={st['n_buckets']} "
+          f"dispatch={st['dispatch_s']:.3f}s "
+          f"collect={st['collect_s']:.3f}s "
+          f"host_stack_bytes=dense:{st['dense_stack_bytes']}"
+          f"/sparse:{st['sparse_stack_bytes']}", flush=True)
+    return res, delta, st, wall
+
+
+def phase_stream(lps, probe: bool = False):
+    """The full-width sparse stream through ``BatchSolver``, stepped and
+    with the megakernel, then a warm stepped pass (``probe``: the stepped
+    pass alone, within the CLI's iteration budget)."""
+    import numpy as np
+
+    from repro_torch.runtime import BatchSolver
+
+    opts = stream_options(max_iters=MAX_ITERS) if probe else stream_options()
+    nnz = [lp.K.nnz for lp in lps]
+    print(f"stream: {len(lps)} instances, shapes "
+          f"{sorted({lp.K.shape for lp in lps})}, nnz {min(nnz)}..."
+          f"{max(nnz)}", flush=True)
+    counts, results = {}, {}
+    for label, o in (("stream stepped", opts),
+                     ("stream megakernel",
+                      dataclasses.replace(opts, megakernel=True))):
+        solver = BatchSolver(o)
+        res, delta, st, wall = _stream_run(label, solver, lps)
+        rels = [abs(r.obj - lp.obj_opt) / abs(lp.obj_opt)
+                for r, lp in zip(res, lps)]
+        print(f"{label}: iterations={[r.iterations for r in res]} "
+              f"status={[r.status for r in res]} "
+              f"max_merit={max(r.merit for r in res):.3e} "
+              f"max_rel_err={max(rels):.3e}", flush=True)
+        if probe:
+            return res
+        for r, lp, rel in zip(res, lps, rels):
+            check(r.status == "optimal" and rel <= 1e-4,
+                  f"{label} {lp.name}: {r.status}, rel err {rel:.3e}")
+        check(st["dense_stack_bytes"] == 0,
+              f"{label}: dense stack {st['dense_stack_bytes']} bytes")
+        w = sum(b["windows"] for b in st["bucket_windows"])
+        n_b = len(st["bucket_windows"])
+        lanczos = 2 * opts.lanczos_iters * n_b
+        want = (launches(dual_update=w * CHECK_EVERY,
+                         primal_update=w * CHECK_EVERY,
+                         ell_matvec=lanczos + w * (2 * CHECK_EVERY + 4))
+                if label == "stream stepped" else
+                launches(ell_matvec=lanczos + 4 * w, fused_ell_steps=w))
+        check(delta == want, f"{label}: launches {delta}, expected {want}")
+        counts[label] = delta
+        results[label] = (res, solver)
+    (ra, solver), (rb, _) = (results["stream stepped"],
+                             results["stream megakernel"])
+    dx = max(float(np.max(np.abs(a.x - b.x))) for a, b in zip(ra, rb))
+    print(f"stream: stepped vs megakernel max|dx|={dx:.3e}", flush=True)
+    check([a.iterations for a in ra] == [b.iterations for b in rb],
+          "stream: stepped and megakernel iterations differ")
+    check(dx <= 1e-8, f"stream: x differs by {dx:.3e}")
+    # the warm pass through the same solver builds nothing
+    _, delta, st, _ = _stream_run("stream warm", solver, lps)
+    check(st["compiles"] == 0, f"warm stream: {st['compiles']} compiles")
+    counts["stream warm"] = delta
     return counts
 
 
 # the full-width path on which each kernel's ``launches`` is read
 MAIN_PATH_OF = {"dual_update": "stepped", "primal_update": "stepped",
                 "fused_dense_steps": "megakernel",
+                "ell_matvec": "stream stepped",
+                "fused_ell_steps": "stream megakernel",
                 "crossbar_mvm": "host full"}
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--probe", default=None,
+                    help="comma-separated scales: run only the stepped "
+                         "full-width sparse stream at each, within the "
+                         "CLI's iteration budget")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
@@ -680,18 +1163,48 @@ def main() -> int:
     for line in built.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}", flush=True)
+
+    if args.probe:
+        for scale in (int(v) for v in args.probe.split(",")):
+            t0 = time.perf_counter()
+            lps = stream_instances(scale)
+            print(f"probe scale={scale}: generated in "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            res = phase_stream(lps, probe=True)
+            print(f"probe scale={scale}: all optimal="
+                  f"{all(r.status == 'optimal' for r in res)}", flush=True)
+            del lps, res
+            torch.cuda.empty_cache()
+        print(smi, flush=True)
+        return 0
+
     print(f"build yardstick: one nvcc over all sources "
           f"{one_nvcc_build_seconds(_build):.1f}s", flush=True)
 
     from repro_torch.crossbar import TAOX_HFOX
 
+    t0 = time.perf_counter()
+    lps = stream_instances(STREAM_SCALE)
+    bucket = main_bucket(lps)
+    print(f"stream: generated and stacked in "
+          f"{time.perf_counter() - t0:.3f}s; main bucket {bucket[0]}",
+          flush=True)
     m, n = (int(v) for v in MAIN_INSTANCE.split(":")[1].split("x"))
     rows = phase_kernels(m, n, CHECK_EVERY)
     rows["crossbar_mvm"] = phase_crossbar_kernel(m + n, TAOX_HFOX.sigma_read)
+    ell_rows = phase_ell_kernels(bucket, CHECK_EVERY)
+    del bucket
+    torch.cuda.empty_cache()
+    rows.update(ell_matvec=ell_rows["ell_matvec"],
+                fused_ell_steps=ell_rows["fused_ell_steps"])
     counts = phase_main(MAIN_INSTANCE)
     counts.update(phase_crossbar(MAIN_INSTANCE))
+    counts.update(phase_small_streams())
+    counts.update(phase_stream(lps))
 
     line = []
+    extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",
+              "nnz_bound_ms", "reread_floor_ms")
     for name in KERNEL_NAMES:
         main_row = next(r for r in rows[name]
                         if r["dtype"] == "float64" and "ms" in r)
@@ -710,22 +1223,24 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"], "dtype": "float64",
         }
-        for extra in ("call_ms", "yardstick_ms", "gemv_ms"):
+        for extra in extras:
             if extra in main_row:
                 entry[extra] = main_row[extra]
         f32 = next(r for r in rows[name]
                    if r["dtype"] == "float32" and "ms" in r)
         entry["f32"] = {"ms": f32["ms"], "plain_ms": f32["plain_ms"],
                         "bound_ms": f32["bound"][0],
+                        "library_ms": f32["library_ms"],
                         "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                            if r["dtype"] == "float32"),
                         "rel_err": max(r["rel_err"] for r in rows[name]
                                        if r["dtype"] == "float32")}
-        for extra in ("call_ms", "yardstick_ms", "gemv_ms"):
+        for extra in extras:
             if extra in f32:
                 entry["f32"][extra] = f32[extra]
         line.append(entry)
-    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"kernels": line, "batched": ell_rows["batched"]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

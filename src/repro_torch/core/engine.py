@@ -1,16 +1,18 @@
 """One PDHG iteration engine with pluggable operator / update backends;
-the port of ``repro.core.engine`` for the dense solve and the host
-driver (the batched crossbar operator belongs to the batch slice).
+the port of ``repro.core.engine``.
 
 An enhanced-PDHG iteration is two MVMs plus cheap vector algebra.  This
 module is the single home of that step (``pdhg_step``), of the check
 window with its restart and step-rule logic (``pdhg_loop``), and of the
 MVM accounting the energy ledger charges.  Two backend axes:
 
-  * operator (``Operator``): the two MVMs — dense ``torch.mv`` with
-    optional multiplicative read noise, plus an optional ``fuse`` hook
-    that runs a whole check window as one launch (the B3 megakernel),
-    or a host-side ``Accel`` handle (``accel_operator``: the crossbar
+  * operator (``Operator``): the two MVMs — dense products with
+    optional multiplicative read noise, sparse COO products
+    (``sparse_operator``), the ELL kernel B4 (``sparse_ell_operator``),
+    the crossbar kernel B6 against the programmed symmetric block
+    (``crossbar_operator``), plus an optional ``fuse`` hook that runs a
+    whole check window as one launch (the megakernels B3 and B5), or a
+    host-side ``Accel`` handle (``accel_operator``: the crossbar
     simulation with its energy ledger, used by ``pdhg.solve``);
   * updates (``Updates``): the proximal vector algebra — plain PyTorch
     (``"torch"``) or the hand-written CUDA kernels (``"cuda"``, B1/B2;
@@ -21,18 +23,25 @@ State is carried in the pre-extrapolated form of the reference:
 and ``tau``/``sigma`` already include iteration k's theta_k.
 
 Host/device contract: ``tau``, ``sigma``, ``theta``, the merits and
-every restart decision are 0-d tensors on the device, combined with
+every restart decision are tensors on the device, combined with
 ``torch.where``; the loop reads one value on the host per check window
-(``merit > tol``).  Random numbers come from an explicit
-``torch.Generator``; JAX's key splitting has no counterpart.
+(whether any lane is still active).  Random numbers come from an
+explicit ``torch.Generator``; JAX's key splitting has no counterpart.
+
+Batches.  Every function here takes one instance ((d,) vectors, 0-d
+step sizes) or a leading batch axis of B independent instances
+("lanes": (B, d) vectors, (B,) step sizes).  ``pdhg_loop`` and
+``solve_core`` are one loop for both: on a batch, the reference's
+vmapped ``while_loop``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..kernels import pdhg_megakernel, pdhg_update
+from ..kernels import crossbar_mvm, pdhg_megakernel, pdhg_update, sparse_mvm
 from .residuals import kkt_residuals
 from .symblock import MODE_AX, MODE_ATY, matmul_accel
 
@@ -51,8 +60,9 @@ _ADAPT_TINY = 1e-30        # degenerate-movement / div-by-zero guard
 # ---------------------------------------------------------------- state ---
 
 class PDHGState(NamedTuple):
-    """Carried PDHG iterate.  ``tau``/``sigma`` are 0-d tensors holding
-    the CURRENT iteration's step sizes (theta_k already applied)."""
+    """Carried PDHG iterate.  ``tau``/``sigma`` are 0-d (or (B,)) tensors
+    holding the CURRENT iteration's step sizes (theta_k already
+    applied)."""
 
     x: torch.Tensor
     x_prev: torch.Tensor
@@ -96,28 +106,80 @@ def _read_noise(w, generator, sigma_read):
     return w * (1.0 + sigma_read * torch.clamp(g, -4.0, 4.0))
 
 
+def _noisy(product, sigma_read: float,
+           generator: Optional[torch.Generator]) -> Callable:
+    """``product`` followed by the read-noise hook of every backend."""
+    if sigma_read <= 0.0:
+        return product
+    if generator is None:
+        raise ValueError("a noisy operator needs a torch.Generator")
+    return lambda v: _read_noise(product(v), generator, sigma_read)
+
+
+def matvec(M) -> Callable:
+    """``v -> M v`` for a dense (m, n) M, or ``(B, n) -> (B, m)`` for a
+    (B, m, n) stack."""
+    if M.dim() == 2:
+        return lambda v: torch.mv(M, v)
+    return lambda v: torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
 def dense_operator(K_fwd, K_adj, sigma_read: float = 0.0,
                    generator: Optional[torch.Generator] = None) -> Operator:
-    """Dense backend.  On an ideal device ``K_adj == K_fwd.T``; on a
-    programmed crossbar the two blocks are distinct cells.  With
-    ``sigma_read > 0`` every MVM draws its read noise from
-    ``generator`` (on the operands' device)."""
-    if sigma_read > 0.0 and generator is None:
-        raise ValueError("a noisy operator needs a torch.Generator")
+    """Dense backend, (m, n) or a (B, m, n) stack.  On an ideal device
+    ``K_adj == K_fwd.T``; on a programmed crossbar the two blocks are
+    distinct cells.  With ``sigma_read > 0`` every MVM draws its read
+    noise from ``generator`` (on the operands' device)."""
+    return Operator(_noisy(matvec(K_fwd), sigma_read, generator),
+                    _noisy(matvec(K_adj), sigma_read, generator), "dense")
+
+
+def coo_matvec(data, row, col, v, shape) -> torch.Tensor:
+    """COO contraction ``out[row] += data * v[col]`` with ``row``/``col``
+    indices into the flattened output and ``v`` (a batch's lanes laid end
+    to end); returns ``shape``.  A gather and a scatter-add, the
+    reference's BCOO product, with no coalescing and so no host read."""
+    out = torch.zeros(math.prod(shape), dtype=v.dtype, device=v.device)
+    return out.index_add_(0, row, data * v.reshape(-1)[col]).view(shape)
+
+
+def sparse_operator(K_sp, sigma_read: float = 0.0,
+                    generator: Optional[torch.Generator] = None) -> Operator:
+    """Sparse backend over a torch sparse COO ``K_sp``, (m, n) or a
+    (B, m, n) batch, coalesced or not: the two MVMs contract only its
+    stored entries (``coo_matvec``; the reference's BCOO path has no
+    Pallas kernel), the adjoint the same entries with rows and columns
+    swapped.  The read-noise hook matches ``dense_operator``."""
+    idx, vals = K_sp._indices(), K_sp._values()
+    *lead, m, n = K_sp.shape
+    row, col = idx[-2], idx[-1]
+    if lead:
+        row, col = row + idx[0] * m, col + idx[0] * n
 
     def fwd(v):
-        w = torch.mv(K_fwd, v)
-        if sigma_read > 0.0:
-            w = _read_noise(w, generator, sigma_read)
-        return w
+        return coo_matvec(vals, row, col, v, (*lead, m))
 
     def adj(v):
-        w = torch.mv(K_adj, v)
-        if sigma_read > 0.0:
-            w = _read_noise(w, generator, sigma_read)
-        return w
+        return coo_matvec(vals, col, row, v, (*lead, n))
 
-    return Operator(fwd, adj, "dense")
+    return Operator(_noisy(fwd, sigma_read, generator),
+                    _noisy(adj, sigma_read, generator), "sparse")
+
+
+def sparse_ell_operator(data_f, cols_f, data_a, cols_a,
+                        sigma_read: float = 0.0,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Operator:
+    """Row-blocked ELL backend on B4 (``kernels.sparse_mvm.ell_matvec``):
+    the forward MVM contracts the ELL form of K (``data_f``/``cols_f``,
+    (m, Wf)), the adjoint a separately stored ELL of K^T (``data_a``/
+    ``cols_a``, (n, Wa)), each optionally batched; both are gathers and
+    row reductions.  The read-noise hook matches ``dense_operator``."""
+    return Operator(
+        _noisy(lambda v: sparse_mvm.ell_matvec(data_f, cols_f, v),
+               sigma_read, generator),
+        _noisy(lambda v: sparse_mvm.ell_matvec(data_a, cols_a, v),
+               sigma_read, generator), "sparse_ell")
 
 
 def accel_operator(accel) -> Operator:
@@ -134,6 +196,45 @@ def accel_operator(accel) -> Operator:
     return Operator(fwd, adj, f"accel({accel.name})")
 
 
+def crossbar_operator(g_pos, g_neg, scale, m: int, n: int,
+                      sigma_read: float = 0.0,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Operator:
+    """Differential-pair backend on B6 (``kernels.crossbar_mvm``) against
+    the SINGLE programmed symmetric block M (Algorithm 2), a (R, C) array
+    or a (B, R, C) stack with ``scale`` a number or (B,): both MVM modes
+    are zero-padded reads of the whole array, the paper's access
+    pattern.  Read noise is a per-row multiplicative sample, truncated at
+    4 sigma, folded into the kernel's output gain."""
+    R, C = g_pos.shape[-2:]
+    lead = tuple(g_pos.shape[:-2])
+
+    def mvm(v_full):
+        if sigma_read > 0.0:
+            g = torch.randn((*lead, R), generator=generator,
+                            dtype=v_full.dtype, device=v_full.device)
+            noise = sigma_read * torch.clamp(g, -4.0, 4.0)
+        else:
+            noise = torch.zeros((*lead, R), dtype=v_full.dtype,
+                                device=v_full.device)
+        return crossbar_mvm.crossbar_mvm(g_pos, g_neg, v_full, scale, noise)
+
+    def padded(v, start):
+        v_full = torch.zeros((*lead, C), dtype=v.dtype, device=v.device)
+        v_full[..., start:start + v.shape[-1]] = v
+        return v_full
+
+    def fwd(x):
+        return mvm(padded(x, m))[..., :m].contiguous()
+
+    def adj(y):
+        return mvm(padded(y, 0))[..., m:m + n].contiguous()
+
+    if sigma_read > 0.0 and generator is None:
+        raise ValueError("a noisy operator needs a torch.Generator")
+    return Operator(fwd, adj, "crossbar")
+
+
 # ------------------------------------------------- megakernel (fused) ---
 
 def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
@@ -146,6 +247,25 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
         (x, x_prev, x_bar, y, tau, sigma, xs, ys) = \
             pdhg_megakernel.fused_dense_steps(
                 K_fwd, K_adj, b, c, lb, ub, T, Sigma,
+                state.x, state.x_prev, state.x_bar, state.y,
+                state.tau, state.sigma,
+                n_steps=int(n_steps), gamma=float(gamma))
+        return (PDHGState(x=x, x_prev=x_prev, x_bar=x_bar, y=y,
+                          tau=tau, sigma=sigma), xs, ys)
+
+    return fuse
+
+
+def make_fused_ell(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
+                   gamma) -> Callable:
+    """``Operator.fuse`` hook for the ELL backend: one B5 launch per check
+    window (same contract as ``make_fused_dense``, operands in ELL
+    form)."""
+
+    def fuse(state: PDHGState, n_steps: int):
+        (x, x_prev, x_bar, y, tau, sigma, xs, ys) = \
+            pdhg_megakernel.fused_ell_steps(
+                data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
                 state.x, state.x_prev, state.x_bar, state.y,
                 state.tau, state.sigma,
                 n_steps=int(n_steps), gamma=float(gamma))
@@ -222,8 +342,8 @@ def adaptive_omega_init(tau0, sigma0, b, c, T, Sigma):
     ``sqrt(|T^1/2 c| / |Sigma^1/2 b|)``, clipped to [1/1024, 1024]."""
     tiny = _tiny(b)
     one = torch.ones_like(tiny)
-    nc2 = torch.sum(T * c * c)
-    nb2 = torch.sum(Sigma * b * b)
+    nc2 = torch.sum(T * c * c, dim=-1)
+    nb2 = torch.sum(Sigma * b * b, dim=-1)
     w = (torch.maximum(nc2, tiny) / torch.maximum(nb2, tiny)) ** 0.25
     w = torch.clamp(w, 1.0 / ADAPT_OMEGA_CLIP, ADAPT_OMEGA_CLIP)
     ok = (nc2 > tiny) & (nb2 > tiny)
@@ -240,9 +360,10 @@ def adaptive_shrink(tau, sigma, eta, dx, dy, Kdx, KTdy, T, Sigma, ok):
     ``eta / rho_loc``; it is never grown."""
     tiny = _tiny(dx)
     one = torch.ones_like(tiny)
-    ndx2 = torch.sum(dx * dx / T)
-    ndy2 = torch.sum(dy * dy / Sigma)
-    nK2 = torch.sum(Sigma * Kdx * Kdx) + torch.sum(T * KTdy * KTdy)
+    ndx2 = torch.sum(dx * dx / T, dim=-1)
+    ndy2 = torch.sum(dy * dy / Sigma, dim=-1)
+    nK2 = (torch.sum(Sigma * Kdx * Kdx, dim=-1)
+           + torch.sum(T * KTdy * KTdy, dim=-1))
     mv2 = ndx2 + ndy2
     rho_loc = torch.sqrt(nK2 / torch.maximum(mv2, tiny))
     g = torch.sqrt(tau * sigma)
@@ -258,8 +379,8 @@ def adaptive_omega_update(tau, sigma, dx, dy, T, Sigma, w_lo, w_hi, ok):
     since the previous restart anchor with log-space smoothing, clipped
     to ``[w_lo, w_hi]``; the product ``tau*sigma`` is preserved."""
     tiny = _tiny(dx)
-    ndx2 = torch.sum(dx * dx / T)
-    ndy2 = torch.sum(dy * dy / Sigma)
+    ndx2 = torch.sum(dx * dx / T, dim=-1)
+    ndy2 = torch.sum(dy * dy / Sigma, dim=-1)
     ok = ok & (ndx2 > tiny) & (ndy2 > tiny)
     w_old = torch.sqrt(sigma / tau)
     ratio = torch.sqrt(ndy2 / torch.maximum(ndx2, tiny))
@@ -284,19 +405,40 @@ def draw_init(generator: torch.Generator, m: int, n: int, lb, ub, dtype):
     return x0, y0
 
 
+def _lanes(mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A per-lane mask or scalar against vectors: (B,) -> (B, 1) (0-d ->
+    (1,) for one instance)."""
+    return mask.unsqueeze(-1) if v.dim() > mask.dim() else mask
+
+
+def select_lanes(mask, new, old):
+    """Per-lane ``where`` over matching tuples of tensors."""
+    return tuple(torch.where(_lanes(mask, a), a, b)
+                 for a, b in zip(new, old))
+
+
 def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
               x0, y0, tau0, sigma0, *,
               max_iters: int, tol: float, gamma: float, check_every: int,
               restart_beta: float, restart: bool = True,
               step_rule: str = "fixed", eta: float = 0.95,
-              residual_fn: Optional[Callable] = None):
+              residual_fn: Optional[Callable] = None,
+              read: Callable = bool):
     """The solve loop: ``check_every`` steps per window (or one fused
     launch when ``op.fuse`` is mounted), then one residual check on the
     current AND the ergodic-average iterate with a PDLP-style adaptive
-    restart.  Exits only at check boundaries: ``it < max_iters`` is
-    tested before each window, so ``iterations`` can overshoot
-    ``max_iters`` up to the next multiple of ``check_every``, and
-    ``merit > tol`` is read on the host once per window.
+    restart.
+
+    One instance has (d,) vectors and 0-d step sizes; a batch of B lanes
+    has a leading axis ((B, d), (B,)) and runs as the reference's
+    ``while_loop`` under ``jax.vmap``.  Before each window a lane is
+    active while ``it < max_iters`` and ``merit > tol``; every lane
+    advances while ANY lane is active, and after the window a stopped
+    lane takes back its state (a per-lane ``torch.where`` on the active
+    mask), so each lane reports its own iterations and merit, and
+    finished lanes are still computed (what the crossbar ledger
+    charges).  Exits only at check boundaries, so ``iterations`` can
+    overshoot ``max_iters`` up to the next multiple of ``check_every``.
 
     ``restart=False`` drops the averaged-iterate block and its two
     MVMs.  ``step_rule="adaptive"`` rescales (tau0, sigma0) from the
@@ -304,11 +446,16 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     down-only safeguard at every boundary, all from already-computed
     quantities (zero extra MVMs).  ``"strongly_convex"`` runs the theta
     schedule inside the window (the step carries it in tau/sigma).
+    Restart and step-rule state is all per lane.
 
     ``residual_fn(x, x_prev, y, Kx, KTy) -> merit`` defaults to the
-    dense KKT residual max.  Returns ``(x, y, iterations, merit)`` with
-    ``iterations`` an int and ``merit`` a 0-d tensor: the merit of the
-    iterate actually carried.
+    dense KKT residual max.  A generator: it yields once a window, just
+    before the one host read of that window (``read(active.any())``), so
+    that a caller can interleave the windows of several batches, and
+    returns ``(x, y, its, merit, windows)``: ``its`` (int64) and
+    ``merit`` per lane on the device (the merit of the iterate actually
+    carried) and ``windows`` the windows run.  ``drain`` runs it to its
+    end.
     """
     if step_rule not in STEP_RULES:
         raise ValueError(f"unknown step_rule {step_rule!r}; expected one "
@@ -320,52 +467,55 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
                                  lb=lb, ub=ub).max
 
     dt, dev = x0.dtype, x0.device
+    lead = tuple(x0.shape[:-1])          # () for one instance, (B,)
 
-    def scalar(v):
-        return torch.full((), v, dtype=dt, device=dev)
+    def lanes(v):
+        return torch.full(lead, v, dtype=dt, device=dev)
 
-    tau0 = torch.as_tensor(tau0, dtype=dt, device=dev)
-    sigma0 = torch.as_tensor(sigma0, dtype=dt, device=dev)
+    tau0 = torch.as_tensor(tau0, dtype=dt, device=dev).expand(lead)
+    sigma0 = torch.as_tensor(sigma0, dtype=dt, device=dev).expand(lead)
+    anchors = ()
     if adaptive:
         tau0, sigma0 = adaptive_omega_init(tau0, sigma0, b, c, T, Sigma)
         w0 = torch.sqrt(sigma0 / tau0)
         w_lo = w0 / ADAPT_OMEGA_CLIP
         w_hi = w0 * ADAPT_OMEGA_CLIP
-        # window baselines for the first boundary are placeholders
-        # (aok=False masks them); the restart anchors start at the
-        # true initial iterate
-        ax, ay = x0, y0
-        aKx, aKTy = torch.zeros_like(y0), torch.zeros_like(x0)
-        aok = torch.zeros((), dtype=torch.bool, device=dev)
-        ok_true = torch.ones((), dtype=torch.bool, device=dev)
-        rx, ry = x0, y0
+        # (ax, ay, aKx, aKTy, aok, rx, ry): the window baselines for the
+        # first boundary are placeholders (aok=False masks them); the
+        # restart anchors start at the true initial iterate
+        anchors = (x0, y0, torch.zeros_like(y0), torch.zeros_like(x0),
+                   torch.zeros(lead, dtype=torch.bool, device=dev), x0, y0)
     state = init_state(x0, y0, tau0, sigma0, gamma)
-
-    it = 0
-    merit = scalar(float("inf"))
-    xs, ys = torch.zeros_like(x0), torch.zeros_like(y0)
-    cnt = scalar(0.0)
-    m_restart = scalar(float("inf"))
-    zero = scalar(0.0)
-    # the one host read per window (compared in the working dtype)
-    while it < max_iters and bool(merit > tol):
+    its = torch.zeros(lead, dtype=torch.int64, device=dev)
+    # (merit, xs, ys, cnt, m_restart)
+    rest = (lanes(math.inf), torch.zeros_like(x0), torch.zeros_like(y0),
+            lanes(0.0), lanes(math.inf))
+    windows = 0
+    # every lane starts with it = 0 and merit = inf: the first condition
+    # is known on the host
+    if not (max_iters > 0 and math.inf > tol):
+        return state.x, state.y, its, rest[0], windows
+    active = torch.ones(lead, dtype=torch.bool, device=dev)
+    while True:
+        merit, xs, ys, cnt, m_restart = rest
+        s = state
         if op.fuse is not None:
             # megakernel window: one fused launch
-            state, dxs, dys = op.fuse(state, check_every)
+            s, dxs, dys = op.fuse(s, check_every)
             xs, ys = xs + dxs, ys + dys
         else:
             for _ in range(check_every):
-                state = pdhg_step(op, upd, b, c, lb, ub, T, Sigma, gamma,
-                                  state)
-                xs, ys = xs + state.x, ys + state.y
+                s = pdhg_step(op, upd, b, c, lb, ub, T, Sigma, gamma, s)
+                xs, ys = xs + s.x, ys + s.y
         cnt = cnt + check_every
-        Kx = op.fwd(state.x)
-        KTy = op.adj(state.y)
-        merit = residual_fn(state.x, state.x_prev, state.y, Kx, KTy)
+        Kx = op.fwd(s.x)
+        KTy = op.adj(s.y)
+        merit = residual_fn(s.x, s.x_prev, s.y, Kx, KTy)
         Kx_c, KTy_c = Kx, KTy
+        new_anchors = anchors
         if restart:
-            x_avg = xs / torch.clamp(cnt, min=1.0)
-            y_avg = ys / torch.clamp(cnt, min=1.0)
+            x_avg = xs / _lanes(torch.clamp(cnt, min=1.0), xs)
+            y_avg = ys / _lanes(torch.clamp(cnt, min=1.0), ys)
             Kxa = op.fwd(x_avg)
             KTya = op.adj(y_avg)
             merit_avg = residual_fn(x_avg, x_avg, y_avg, Kxa, KTya)
@@ -373,83 +523,106 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
             # adopt the average on a restart that improves the merit, or
             # whenever it already satisfies tol
             use_avg = (do_restart & (merit_avg < merit)) | (merit_avg <= tol)
-
-            def pick(a, cur):
-                return torch.where(use_avg, a, cur)
-
-            state = state._replace(
-                x=pick(x_avg, state.x), x_prev=pick(x_avg, state.x_prev),
-                x_bar=pick(x_avg, state.x_bar), y=pick(y_avg, state.y))
+            x, x_prev, x_bar, y = select_lanes(
+                use_avg, (x_avg, x_avg, x_avg, y_avg),
+                (s.x, s.x_prev, s.x_bar, s.y))
+            s = s._replace(x=x, x_prev=x_prev, x_bar=x_bar, y=y)
             m_restart = torch.where(do_restart,
                                     torch.minimum(merit_avg, merit),
                                     m_restart)
-            xs = torch.where(do_restart, zero, xs)
-            ys = torch.where(do_restart, zero, ys)
-            cnt = torch.where(do_restart, zero, cnt)
+            xs, ys, cnt = select_lanes(do_restart, (torch.zeros_like(xs),
+                                               torch.zeros_like(ys),
+                                               torch.zeros_like(cnt)),
+                                  (xs, ys, cnt))
             # the carried merit is the merit of the iterate CARRIED
             merit = torch.where(use_avg, merit_avg, merit)
             if adaptive:
                 # operator images of the carried iterate, by linearity
-                Kx_c, KTy_c = pick(Kxa, Kx), pick(KTya, KTy)
+                Kx_c, KTy_c = select_lanes(use_avg, (Kxa, KTya), (Kx, KTy))
+                rx, ry = anchors[5:]
                 tau_n, sigma_n = adaptive_omega_update(
-                    state.tau, state.sigma, state.x - rx, state.y - ry,
-                    T, Sigma, w_lo, w_hi, do_restart)
-                state = state._replace(tau=tau_n, sigma=sigma_n)
-                rx = torch.where(do_restart, state.x, rx)
-                ry = torch.where(do_restart, state.y, ry)
+                    s.tau, s.sigma, s.x - rx, s.y - ry, T, Sigma, w_lo,
+                    w_hi, do_restart)
+                s = s._replace(tau=tau_n, sigma=sigma_n)
+                new_anchors = anchors[:5] + select_lanes(
+                    do_restart, (s.x, s.y), (rx, ry))
         if adaptive:
+            ax, ay, aKx, aKTy, aok = new_anchors[:5]
             tau_n, sigma_n = adaptive_shrink(
-                state.tau, state.sigma, eta,
-                state.x - ax, state.y - ay, Kx_c - aKx, KTy_c - aKTy,
-                T, Sigma, aok)
-            state = state._replace(tau=tau_n, sigma=sigma_n)
-            ax, ay, aKx, aKTy = state.x, state.y, Kx_c, KTy_c
-            aok = ok_true
-        it += check_every
-    return state.x, state.y, it, merit
+                s.tau, s.sigma, eta, s.x - ax, s.y - ay, Kx_c - aKx,
+                KTy_c - aKTy, T, Sigma, aok)
+            s = s._replace(tau=tau_n, sigma=sigma_n)
+            new_anchors = ((s.x, s.y, Kx_c, KTy_c, torch.ones_like(aok))
+                           + new_anchors[5:])
+        # lanes that had stopped keep their state (the vmapped select)
+        state = PDHGState(*select_lanes(active, s, state))
+        rest = select_lanes(active, (merit, xs, ys, cnt, m_restart), rest)
+        anchors = select_lanes(active, new_anchors, anchors)
+        its = torch.where(active, its + check_every, its)
+        windows += 1
+        active = (its < max_iters) & (rest[0] > tol)
+        yield
+        # the one host read of the window
+        if not read(active.any()):
+            break
+    return state.x, state.y, its, rest[0], windows
+
+
+def drain(gen):
+    """Run a loop generator (``pdhg_loop``, ``solve_core``) to its end;
+    its return value."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
 
 
 # ----------------------------------------------------- core + ledger ---
 
 def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
                generator: Optional[torch.Generator], static, *,
-               operator: Optional[Operator] = None, x0=None, y0=None):
-    """The solve core (option plumbing around ``pdhg_loop``).
+               operator: Optional[Operator] = None, x0=None, y0=None,
+               read: Callable = bool):
+    """The solve core: option plumbing around ``pdhg_loop``, for one
+    instance or a batch (a generator as well; same returns).
 
     ``static`` is the tuple from ``pdhg.opts_static``: (max_iters, tol,
     eta, omega, gamma, check_every, restart_beta, sigma_read, kernel,
     restart, sparse_kernel, megakernel, step_rule, ...).  ``rho`` is the
-    operator-norm estimate (a 0-d tensor).  ``x0``/``y0`` start the loop
-    (both or neither); by default the projected-Gaussian start is drawn
-    from ``generator``, which also drives the read noise.  The
-    megakernel is mounted when asked for on a noiseless dense operator.
+    operator-norm estimate (0-d, or (B,) for a batch).  ``x0``/``y0``
+    start the loop (both or neither); by default one instance's
+    projected-Gaussian start is drawn from ``generator``, which also
+    drives the read noise of the default dense operator (an (m, n) K or
+    a (B, m, n) stack).  The dense megakernel is mounted when asked for
+    on a noiseless dense operator.
     """
     (max_iters, tol, eta, omega, gamma, check_every, restart_beta,
      sigma_read, kernel) = static[:9]
     restart = bool(static[9]) if len(static) > 9 else True
     megakernel = bool(static[11]) if len(static) > 11 else False
     step_rule = str(static[12]) if len(static) > 12 else "fixed"
-    m, n = b.shape[0], c.shape[0]
     # an all-zero operator has rho = 0; unguarded it makes tau0 = inf
     rho = torch.clamp(torch.as_tensor(rho, dtype=b.dtype, device=b.device),
                       min=1e-12)
     tau0 = eta / (omega * rho)
     sigma0 = eta * omega / rho
     if x0 is None:
-        x0, y0 = draw_init(generator, m, n, lb, ub, b.dtype)
+        x0, y0 = draw_init(generator, b.shape[-1], c.shape[-1], lb, ub,
+                           b.dtype)
     if operator is None:
         operator = dense_operator(K_fwd, K_adj, sigma_read, generator)
     if (megakernel and operator.fuse is None and sigma_read == 0.0
             and operator.name == "dense"):
         operator = operator._replace(fuse=make_fused_dense(
-            K_fwd, K_adj, b, c, lb, ub, T, Sigma, gamma))
-    return pdhg_loop(
+            K_fwd.contiguous(), K_adj.contiguous(), b, c, lb, ub, T, Sigma,
+            gamma))
+    return (yield from pdhg_loop(
         operator, make_updates(kernel),
         b, c, lb, ub, T, Sigma, x0, y0, tau0, sigma0,
         max_iters=max_iters, tol=tol, gamma=gamma, check_every=check_every,
         restart_beta=restart_beta, restart=restart,
-        step_rule=step_rule, eta=eta,
-    )
+        step_rule=step_rule, eta=eta, read=read))
 
 
 def lemma2_margin(rho, sigma_read: float):

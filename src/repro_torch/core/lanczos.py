@@ -12,6 +12,12 @@ Every estimator takes ``v0=`` so that a caller can inject the start
 vector; by default it is drawn from a CPU ``torch.Generator`` (seeded
 with 0, or the caller's seed), so that CPU and CUDA runs start from the
 same vector.
+
+``lanczos_svd_jit_mv`` and ``power_iteration_mv`` run one estimate or B
+at once (``batch=B``: the matvec maps (B, dim) to (B, dim), every lane
+starts from the same vector, norms and dot products run along the last
+axis), without any host read: the tridiagonal matrices are solved on
+the device by ``tridiag_radius``.
 """
 from __future__ import annotations
 
@@ -119,35 +125,87 @@ def _tridiag(alphas, betas) -> np.ndarray:
     return T
 
 
+def _lane_start(v0, dim, dtype, device, batch):
+    """The start vector, one for every lane of a batch unless ``v0`` is
+    already (B, dim)."""
+    v = _start(v0, dim, dtype, device)
+    return v.expand(batch, dim) if batch is not None and v.dim() == 1 else v
+
+
+def _norm(u):
+    return torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+
+
+#: squarings of T^2 in ``tridiag_radius``: a gap ratio r between the two
+#: largest eigenvalues of T^2 leaves a weight r^(2^50) on the second
+TRIDIAG_SQUARINGS = 50
+#: the (k, k) matrix products of one ``tridiag_radius`` call (T^2, the
+#: squarings, T v): digital work on the tridiagonal matrix, never an MVM
+#: against the operator, so never charged to the ledger
+RITZ_PRODUCTS = TRIDIAG_SQUARINGS + 2
+
+
+def tridiag_radius(alphas: torch.Tensor, betas: torch.Tensor):
+    """max |eigenvalue| of the symmetric tridiagonal matrices with
+    diagonals ``alphas`` (..., k) and off-diagonals ``betas``
+    (..., k - 1), on their device and without a host read
+    (``torch.linalg.eigvalsh`` synchronises with the host on a card).
+
+    A = T^2 is squared and rescaled ``TRIDIAG_SQUARINGS`` times, which
+    leaves the dominant eigenspace of T^2 in its columns; the column
+    with the largest diagonal entry is a dominant eigenvector v of T^2,
+    whose eigenvalue is the square of T's largest |eigenvalue|, so that
+    |lambda|_max = ||T v|| / ||v||.  The Rayleigh quotient is accurate
+    to roundoff even where the two largest eigenvalues of T^2 nearly
+    coincide (the +-sigma pairs of a symmetric block): the result then
+    lies between them.  An all-zero T gives 0."""
+    T = (torch.diag_embed(alphas) + torch.diag_embed(betas, 1)
+         + torch.diag_embed(betas, -1))
+    A = T @ T
+    tiny = torch.finfo(T.dtype).tiny
+    for _ in range(TRIDIAG_SQUARINGS):
+        A = A / torch.clamp(torch.amax(torch.abs(A), dim=(-2, -1),
+                                       keepdim=True), min=tiny)
+        A = A @ A
+    j = torch.argmax(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)
+    v = torch.gather(A, -1,
+                     j[..., None, None].expand(*j.shape, A.shape[-2], 1))
+    nv = torch.linalg.vector_norm(v, dim=(-2, -1))
+    nTv = torch.linalg.vector_norm(T @ v, dim=(-2, -1))
+    return torch.where(nv > 0, nTv / torch.clamp(nv, min=tiny),
+                       torch.zeros_like(nv))
+
+
 def lanczos_svd_jit_mv(matvec: Callable, dim: int, dtype, k_max: int = 32,
-                       v0=None, device=None) -> torch.Tensor:
+                       v0=None, device=None,
+                       batch: Optional[int] = None) -> torch.Tensor:
     """Fixed-iteration Lanczos on an arbitrary symmetric matvec.
 
     Returns the largest |Ritz value| of the k_max-step
     tridiagonalization as a 0-d tensor on ``device``; no early exit
-    (fixed cost).  Past an exact breakdown (``beta_next`` at the
-    roundoff floor, e.g. ``dim < k_max``) the unnormalised remainder is
-    carried on unless ``beta_next`` is at or below 1e-30, as in the
-    reference."""
-    v = _start(v0, dim, dtype, device)
-    v = v / torch.linalg.vector_norm(v)
+    (fixed cost) and no host read (``tridiag_radius``).  Past an exact
+    breakdown (``beta_next`` at the roundoff floor, e.g. ``dim <
+    k_max``) the unnormalised remainder is carried on unless
+    ``beta_next`` is at or below 1e-30, as in the reference.  With
+    ``batch=B`` the matvec maps (B, dim) to (B, dim), ``v0`` is one
+    (dim,) start for every lane or (B, dim), and the result is (B,)."""
+    v = _lane_start(v0, dim, dtype, device, batch)
+    v = v / _norm(v)
     v_prev = torch.zeros_like(v)
-    beta = torch.zeros((), dtype=dtype, device=v.device)
+    beta = torch.zeros_like(v[..., :1])
     alphas, betas = [], []
     for _ in range(k_max):
         w = matvec(v)
         w = w - beta * v_prev
-        alpha = torch.dot(v, w)
+        alpha = torch.sum(v * w, dim=-1, keepdim=True)
         w = w - alpha * v
-        beta_next = torch.linalg.vector_norm(w)
+        beta_next = _norm(w)
         v_next = torch.where(beta_next > 1e-30, w / beta_next, w)
         v_prev, v, beta = v, v_next, beta_next
         alphas.append(alpha)
         betas.append(beta_next)
-    a = torch.stack(alphas).cpu()
-    b = torch.stack(betas).cpu()[:-1]
-    T = torch.diag(a) + torch.diag(b, 1) + torch.diag(b, -1)
-    return torch.max(torch.abs(torch.linalg.eigvalsh(T))).to(v.device)
+    return tridiag_radius(torch.cat(alphas, dim=-1),
+                          torch.cat(betas[:-1] or [beta[..., :0]], dim=-1))
 
 
 def lanczos_svd_jit(M: torch.Tensor, k_max: int = 32,
@@ -158,19 +216,21 @@ def lanczos_svd_jit(M: torch.Tensor, k_max: int = 32,
 
 
 def power_iteration_mv(matvec: Callable, dim: int, dtype, iters: int = 64,
-                       v0=None, device=None) -> torch.Tensor:
+                       v0=None, device=None,
+                       batch: Optional[int] = None) -> torch.Tensor:
     """Fixed-iteration power method on a symmetric matvec (the
     ``norm_backend="power"`` twin of ``lanczos_svd_jit_mv``: same call
     shape, same one-MVM-per-iteration charge).  Returns the last growth
-    factor ``||M v_k||``, which converges to sigma_max(K)."""
-    v = _start(v0, dim, dtype, device)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+    factor ``||M v_k||``, which converges to sigma_max(K); with
+    ``batch=B``, one per lane ((B,), norms along the last axis)."""
+    v = _lane_start(v0, dim, dtype, device, batch)
+    v = v / torch.clamp(_norm(v), min=1e-30)
     nw: Optional[torch.Tensor] = None
     for _ in range(iters):
         w = matvec(v)
-        nw = torch.linalg.vector_norm(w)
+        nw = _norm(w)
         v = w / torch.clamp(nw, min=1e-30)
-    return nw
+    return nw.squeeze(-1)
 
 
 def power_iteration(K: torch.Tensor, iters: int = 100,

@@ -420,9 +420,11 @@ def solve_jit(
         rho = engine.lemma2_margin(
             _norm_estimate(Kf, T, Sigma, opts, v0), sigma_read)
     generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
-    x, y, it, merit = engine.solve_core(
+    x, y, _, merit, windows = engine.drain(engine.solve_core(
         Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, rho,
-        generator, static, x0=x0, y0=y0)
+        generator, static, x0=x0, y0=y0))
+    # one instance is active in every window it runs
+    it = windows * opts.check_every
     x_orig = scaled.unscale_x(x).cpu().numpy()
     y_orig = scaled.unscale_y(y).cpu().numpy()
     res = kkt_residuals(

@@ -8,6 +8,8 @@ r_gap  = |c^T x - b^T y| / (1 + |c^T x| + |b^T y|)
 
 The residuals reuse already-computed MVM products; every value stays a
 0-d tensor on the device, so a check costs no host sync by itself.
+With a leading batch axis ((B, d) vectors) every residual is a (B,)
+tensor, one per lane.
 """
 from __future__ import annotations
 
@@ -64,15 +66,22 @@ def kkt_residuals(
         lam = lam_lo - lam_hi
         lb_fin = torch.where(has_lb, lb if lb is not None else zero, zero)
         ub_fin = torch.where(has_ub, ub if ub is not None else zero, zero)
-    norm = torch.linalg.vector_norm
+    if x.dim() == 1:
+        norm, dot = torch.linalg.vector_norm, torch.dot
+    else:
+        def norm(v):
+            return torch.linalg.vector_norm(v, dim=-1)
+
+        def dot(u, v):
+            return torch.sum(u * v, dim=-1)
     r_pri = norm(Kx - b) / (1.0 + norm(b))
     r_dual = norm(reduced - lam) / (1.0 + norm(c))
     r_iter = norm(torch.clamp(x_prev - x, min=0.0)) / (1.0 + norm(x))
-    pobj = torch.dot(c, x)
+    pobj = dot(c, x)
     # bounds-aware dual objective: b^T y + lb^T lam_lo - ub^T lam_hi
-    dobj = torch.dot(b, y)
+    dobj = dot(b, y)
     if lb_fin is not None:
-        dobj = dobj + torch.dot(lb_fin, lam_lo) - torch.dot(ub_fin, lam_hi)
+        dobj = dobj + dot(lb_fin, lam_lo) - dot(ub_fin, lam_hi)
     r_gap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj) + torch.abs(dobj))
     return KKTResiduals(r_pri=r_pri, r_dual=r_dual, r_iter=r_iter, r_gap=r_gap)
 

@@ -30,11 +30,12 @@ MODE_ATY = "AT@y"
 
 
 def build_sym_block(K) -> torch.Tensor:
-    """Algorithm 1 (BUILDSYMBLOCK), host step: M from K (m x n)."""
-    m, n = K.shape
-    M = torch.zeros((m + n, m + n), dtype=K.dtype, device=K.device)
-    M[:m, m:] = K
-    M[m:, :m] = K.T
+    """Algorithm 1 (BUILDSYMBLOCK), host step: M from K (m x n), or a
+    (B, m + n, m + n) stack from a (B, m, n) one."""
+    lead, (m, n) = K.shape[:-2], K.shape[-2:]
+    M = torch.zeros((*lead, m + n, m + n), dtype=K.dtype, device=K.device)
+    M[..., :m, m:] = K
+    M[..., m:, :m] = K.transpose(-2, -1)
     return M
 
 

@@ -157,6 +157,25 @@ def encode_core(W: torch.Tensor, generator: Optional[torch.Generator],
     return g_pos, g_neg, scale, nz
 
 
+def encode_stack(W: torch.Tensor, device: DeviceModel, program):
+    """``encode_core`` over a (B, R, C) stack of padded arrays, one lane
+    at a time: the batched crossbar stream programs a whole bucket.
+    ``program`` is a (z_pos, z_neg) pair of (B, R, C) injected draws (the
+    fault-free path only) or the lanes' generators.  Returns ``(g_pos,
+    g_neg, scale, nz)`` stacked: (B, R, C), (B, R, C), (B,), (B,)."""
+    lanes = []
+    for k in range(W.shape[0]):
+        injected = isinstance(program, tuple)
+        lanes.append(encode_core(
+            W[k], None if injected else program[k], device.g_levels,
+            device.sigma_program, ecc=device.ecc,
+            ecc_decode_how=device.ecc_decode, stuck_rate=device.stuck_rate,
+            drift=device.drift,
+            program_draw=(program[0][k], program[1][k]) if injected
+            else None))
+    return tuple(torch.stack(parts) for parts in zip(*lanes))
+
+
 def charge_write(ledger: Ledger, device: DeviceModel, nz: float,
                  pairs_logical: int, pairs_total: int) -> float:
     """Accumulate the programming cost of one differential array.

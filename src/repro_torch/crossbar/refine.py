@@ -50,8 +50,10 @@ def digital_merit(x, y, b, c, lb, ub, Kx, KTy):
 def refined_core(K_dig_fwd, K_dig_adj, K_fwd, K_adj, b, c, lb, ub, T,
                  Sigma, rho, generator, static, *,
                  operator: Optional[engine.Operator] = None, x0=None,
-                 y0=None):
-    """Digital-outer / analog-inner refinement shell.
+                 y0=None, read=bool):
+    """Digital-outer / analog-inner refinement shell, for one instance or
+    a batch of B lanes (the reference's ``refined_core``, under
+    ``jax.vmap`` for a batch).
 
     ``K_dig_fwd``/``K_dig_adj`` are the EXACT scaled operator blocks,
     used only for the digital residual/merit MVMs; ``K_fwd``/``K_adj``
@@ -59,25 +61,29 @@ def refined_core(K_dig_fwd, K_dig_adj, K_fwd, K_adj, b, c, lb, ub, T,
     solve runs on, identical in every round.  ``static`` is the
     ``pdhg.opts_static`` tuple: entries 13 (``refine_rounds``) and 14
     (``refine_tol``) drive the shell, the rest goes to
-    ``engine.solve_core``.  ``x0``/``y0`` start the first solve (by
-    default drawn from ``generator``, which also drives the read noise).
+    ``engine.solve_core`` (each round of a batch runs until its slowest
+    lane stops, and each lane adopts its own candidate).  ``x0``/``y0``
+    start the first solve (by default drawn from ``generator``, which
+    also drives the read noise).
 
-    Returns ``(x, y, its, merit)`` with ``its`` the per-round iteration
-    counts (``refine_rounds + 1`` ints) and ``merit`` the exact digital
-    KKT merit after refinement (``refine_rounds == 0``: the first
-    solve's in-loop merit)."""
+    A generator like ``engine.solve_core``; returns ``(x, y, its, merit,
+    windows)`` with ``its`` the per-round iteration counts and
+    ``windows`` the per-round window counts (``refine_rounds + 1``
+    entries each) and ``merit`` the exact digital KKT merit after
+    refinement (``refine_rounds == 0``: the first solve's in-loop
+    merit)."""
     rounds = int(static[13]) if len(static) > 13 else 0
     refine_tol = float(static[14]) if len(static) > 14 else 0.0
 
-    x, y, it0, merit0 = engine.solve_core(
+    x, y, it0, merit0, w0 = yield from engine.solve_core(
         K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho, generator, static,
-        operator=operator, x0=x0, y0=y0)
+        operator=operator, x0=x0, y0=y0, read=read)
+    its, windows = [it0], [w0]
     if rounds == 0:
-        return x, y, [it0], merit0
+        return x, y, its, merit0, windows
 
-    its = [it0]
-    Kx = torch.mv(K_dig_fwd, x)
-    KTy = torch.mv(K_dig_adj, y)
+    mv_f, mv_a = engine.matvec(K_dig_fwd), engine.matvec(K_dig_adj)
+    Kx, KTy = mv_f(x), mv_a(y)
     merit = digital_merit(x, y, b, c, lb, ub, Kx, KTy)
     tiny = torch.full((), _TINY, dtype=b.dtype, device=b.device)
     for _ in range(rounds):
@@ -85,26 +91,26 @@ def refined_core(K_dig_fwd, K_dig_adj, K_fwd, K_adj, b, c, lb, ub, T,
         rc = c - KTy
         # unit-scale the correction problem: relative analog noise means
         # the absolute error floor of the inner solve tracks s downward
-        s = torch.maximum(torch.maximum(torch.max(torch.abs(rb)),
-                                        torch.max(torch.abs(rc))), tiny)
-        dx, dy, it_r, _ = engine.solve_core(
+        s = torch.maximum(torch.maximum(torch.amax(torch.abs(rb), dim=-1),
+                                        torch.amax(torch.abs(rc), dim=-1)),
+                          tiny).unsqueeze(-1)
+        dx, dy, it_r, _, w_r = yield from engine.solve_core(
             K_fwd, K_adj, rb / s, rc / s, (lb - x) / s, (ub - x) / s,
             T, Sigma, rho, generator, static, operator=operator,
-            x0=torch.zeros_like(x), y0=torch.zeros_like(y))
+            x0=torch.zeros_like(x), y0=torch.zeros_like(y), read=read)
         its.append(it_r)
+        windows.append(w_r)
         x_c = torch.clamp(x + s * dx, lb, ub)
         y_c = y + s * dy
-        Kx_c = torch.mv(K_dig_fwd, x_c)
-        KTy_c = torch.mv(K_dig_adj, y_c)
+        Kx_c, KTy_c = mv_f(x_c), mv_a(y_c)
         merit_c = digital_merit(x_c, y_c, b, c, lb, ub, Kx_c, KTy_c)
         # safeguarded adoption: keep only an exact improvement, and stop
         # moving once the target tolerance is met
         adopt = (merit_c < merit) & (merit > refine_tol)
-        x, y = torch.where(adopt, x_c, x), torch.where(adopt, y_c, y)
-        Kx = torch.where(adopt, Kx_c, Kx)
-        KTy = torch.where(adopt, KTy_c, KTy)
+        x, y, Kx, KTy = engine.select_lanes(adopt, (x_c, y_c, Kx_c, KTy_c),
+                                            (x, y, Kx, KTy))
         merit = torch.where(adopt, merit_c, merit)
-    return x, y, its, merit
+    return x, y, its, merit, windows
 
 
 def solve_crossbar_refined(
@@ -142,9 +148,11 @@ def solve_crossbar_refined(
         lanczos_mvms = opts.lanczos_iters
 
     generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
-    x, y, its, merit = refined_core(
+    x, y, _, merit, windows = engine.drain(refined_core(
         scaled.K, scaled.K.T, K_fwd, K_adj, scaled.b, scaled.c, scaled.lb,
-        scaled.ub, T, Sigma, rho, generator, static, x0=x0, y0=y0)
+        scaled.ub, T, Sigma, rho, generator, static, x0=x0, y0=y0))
+    # one instance is active in every window it runs
+    its = [w * opts.check_every for w in windows]
 
     pdhg_mvms = sum(engine.mvm_accounting(i, opts.check_every, 0,
                                           restart=opts.restart)

@@ -69,16 +69,20 @@ def lp_tensors(lp: StandardLP, device, dtype=torch.float64) -> LPTensors:
 
 class Draws(NamedTuple):
     """Injected random vectors for one solve (``solve_jit``, the host
-    driver ``solve``, ``solve_crossbar_jit`` and its refinement).
+    driver ``solve``, ``solve_crossbar_jit`` and its refinement) or one
+    lane of a batch (``runtime.batch``).
 
     ``x0`` (n,) and ``y0`` (m,) are the PDHG start (``x0`` is clipped to
     the scaled bounds, which leaves a reference ``draw_init`` output
     unchanged); ``v0`` (m+n,) is the norm estimate's start vector before
-    normalisation, or ``None`` for the estimator's seeded default."""
+    normalisation, or ``None`` for the estimator's seeded default;
+    ``program`` is the crossbar stream's programming draw ``(z_pos,
+    z_neg)`` (see ``crossbar.encode.encode_core``), or ``None``."""
 
     x0: object
     y0: object
     v0: Optional[object] = None
+    program: Optional[object] = None
 
 
 def place_draws(draws: Optional[Draws], lb: torch.Tensor, ub: torch.Tensor):

@@ -4,10 +4,11 @@ The sources under ``csrc/`` are compiled on first use with ``nvcc``, one
 process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 lands in ``build/repro_torch_kernels/<hash>/`` at the repository root,
-where ``<hash>`` covers the sources and the flags, so an edited source
-is rebuilt and an unchanged one is reused.  A missing ``nvcc``, a failed
-build or a failed launch raises: there is no fallback.  Nothing here
-runs at import time.
+where ``<hash>`` covers the sources, every header they include and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  ``builds`` counts the ``nvcc`` runs of this process.  A
+missing ``nvcc``, a failed build or a failed launch raises: there is no
+fallback.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,22 +26,33 @@ from typing import NamedTuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pdhg_kernels.cu", "crossbar_mvm.cu")
+SOURCES = ("pdhg_kernels.cu", "crossbar_mvm.cu", "sparse_mvm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpdhg_kernels.so"
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_INT = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes of the _f32/_f64 pair (pointers, sizes, stream last)
-    "pdhg_dual_update": [_P] * 6 + [_LL, _P],
-    "pdhg_primal_update": [_P] * 10 + [_LL, _P],
-    "pdhg_fused_dense": ([_P] * 18 + [ctypes.c_int] * 3
-                         + [ctypes.c_double, _P]),
+    # vectors, step sizes, out; per-lane length; batch
+    "pdhg_dual_update": [_P] * 6 + [_LL, _INT, _P],
+    "pdhg_primal_update": [_P] * 10 + [_LL, _INT, _P],
+    # operands, state, step sizes in/out, sums, schedule scratch;
+    # m, n, batch, steps; gamma
+    "pdhg_fused_dense": [_P] * 19 + [_INT] * 4 + [ctypes.c_double, _P],
+    # as above with the two ELL forms first; m, n, Wf, Wa, batch, steps
+    "pdhg_fused_ell": [_P] * 21 + [_INT] * 6 + [ctypes.c_double, _P],
     # G+, G-, v, gain, out; R, C; batch; batch strides of G, v, gain/out
-    "crossbar_mvm": [_P] * 5 + [_LL, _LL, ctypes.c_int] + [_LL] * 3 + [_P],
+    "crossbar_mvm": [_P] * 5 + [_LL, _LL, _INT] + [_LL] * 3 + [_P],
+    # data, cols, v, out; m, W, batch; batch strides of data/cols, v, out
+    "ell_matvec": [_P] * 4 + [_INT] * 3 + [_LL] * 3 + [_P],
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+builds = 0      # nvcc runs of this process (a cache of built libraries
+#                 on disk makes a warm process report 0)
 
 
 class BuildResult(NamedTuple):
@@ -66,9 +79,24 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def included_files() -> tuple:
+    """The sources and, transitively, every ``#include "..."`` file
+    under ``csrc/`` they name, each once, sources first."""
+    seen, todo = [], list(SOURCES)
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        for inc in _INCLUDE.findall((CSRC / name).read_bytes()):
+            if (CSRC / inc.decode()).exists():
+                todo.append(inc.decode())
+    return tuple(seen)
+
+
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in included_files():
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -79,6 +107,7 @@ def build(verbose: bool = False) -> BuildResult:
     """Compile the kernels unless an identical build exists.  With
     ``verbose`` the per-kernel register and shared-memory use that
     ptxas reports is returned in the log (the library is the same)."""
+    global builds
     extra = ("-Xptxas", "-v") if verbose else ()
     out_dir = repo_root() / "build" / "repro_torch_kernels" / _digest()
     lib = out_dir / LIB_NAME
@@ -110,6 +139,7 @@ def build(verbose: bool = False) -> BuildResult:
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{proc.stdout}")
     seconds = time.perf_counter() - t0
+    builds += 1
     for o in objs:
         o.unlink(missing_ok=True)
     if failed:

@@ -1,41 +1,54 @@
-"""Check-window megakernel B3: ``n_steps`` fused PDHG steps per launch.
+"""Check-window megakernels: ``n_steps`` fused PDHG steps per launch.
 
-Port of ``repro/kernels/pdhg_megakernel.py::_dense_kernel``
-(``fused_dense_steps``).  The engine's loop runs ``check_every`` steps
-per residual check; in megakernel mode the whole window is ONE
-cooperative CUDA launch (``fused_dense_kernel`` in
-``csrc/pdhg_kernels.cu``, which also says what bounds it on the H100).
-The residual / restart check stays outside, so fused and stepped loops
-visit the same check points.
+    B3  fused_dense_steps  port of repro/kernels/pdhg_megakernel.py
+                           ::_dense_kernel
+    B5  fused_ell_steps    port of ::_ell_kernel in the same file
 
-The kernel applies the same per-element algebra as the update kernels
-(the shared ``dual_elem``/``primal_elem`` device functions), including
-the ``strongly_convex`` θ-schedule: θ = 1/√(1+2γτ), τ ← θτ, σ ← σ/θ
-after every step.  Noiseless only; the engine mounts it only when no
-read noise is configured.
+The engine's loop runs ``check_every`` steps per residual check; in
+megakernel mode the whole window is ONE cooperative CUDA launch
+(``fused_dense_kernel``/``fused_ell_kernel`` in ``csrc/pdhg_kernels.cu``,
+which also says what bounds each on the H100).  The residual / restart
+check stays outside, so fused and stepped loops visit the same check
+points.
 
-``fused_dense_steps`` launches the kernel for CUDA tensors and takes the
-plain version (a port of the reference's ``_run_steps``) for CPU
-tensors, and only for them; it counts its launches in ``.launches``.
+The kernels apply the same per-element algebra as the update kernels
+(the shared ``dual_elem``/``primal_elem`` device functions of
+``csrc/pdhg_common.cuh``), and B5 the same ELL row product as B4,
+including the ``strongly_convex`` θ-schedule per lane: θ = 1/√(1+2γτ),
+τ ← θτ, σ ← σ/θ after every step.  Noiseless only; the engine mounts
+them only when no read noise is configured.
+
+Both take an optional leading batch axis: operators ``(B, ...)``, vectors
+``(B, d)`` and ``tau``/``sigma`` of shape ``(B,)``; one launch runs every
+lane.  The wrappers launch the kernel for CUDA tensors and take the plain
+version (a port of the reference's ``_run_steps``) for CPU tensors, and
+only for them; each counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .pdhg_update import _on_cpu, dual_update_plain, primal_update_plain
+from .pdhg_update import (
+    _on_cpu,
+    batch_of,
+    dual_update_plain,
+    lane_scalars,
+    primal_update_plain,
+)
+from .sparse_mvm import check_ell, ell_matvec_plain
 
 
-def fused_dense_steps_plain(K, K_adj, b, c, lb, ub, T, Sigma,
-                            x, x_prev, x_bar, y, tau, sigma, *,
-                            n_steps: int, gamma: float):
-    """``n_steps`` of ``engine.pdhg_step`` with the ergodic sums, in
-    plain PyTorch (the order of operations mirrors the engine's step)."""
+def _run_steps_plain(fwd, adj, b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y,
+                     tau, sigma, n_steps: int, gamma: float):
+    """``n_steps`` of ``engine.pdhg_step`` with the ergodic sums, in plain
+    PyTorch over the products ``fwd``/``adj`` (the order of operations
+    mirrors the engine's step)."""
     xs = torch.zeros_like(x)
     ys = torch.zeros_like(y)
     for _ in range(int(n_steps)):
-        y_n = dual_update_plain(y, torch.mv(K, x_bar), b, Sigma, sigma)
-        KTy = torch.mv(K_adj, y_n)
+        y_n = dual_update_plain(y, fwd(x_bar), b, Sigma, sigma)
+        KTy = adj(y_n)
         theta_n = 1.0 / torch.sqrt(1.0 + 2.0 * gamma * tau)
         x_n, x_bar = primal_update_plain(x, KTy, c, T, lb, ub, tau, theta_n)
         x, x_prev, y = x_n, x, y_n
@@ -45,44 +58,131 @@ def fused_dense_steps_plain(K, K_adj, b, c, lb, ub, T, Sigma,
     return x, x_prev, x_bar, y, tau, sigma, xs, ys
 
 
+def _dense_mv(M):
+    if M.dim() == 2:
+        return lambda v: torch.mv(M, v)
+    return lambda v: torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def fused_dense_steps_plain(K, K_adj, b, c, lb, ub, T, Sigma,
+                            x, x_prev, x_bar, y, tau, sigma, *,
+                            n_steps: int, gamma: float):
+    """B3's plain version: ``n_steps`` dense steps, K (m, n) or (B, m, n)."""
+    return _run_steps_plain(_dense_mv(K), _dense_mv(K_adj), b, c, lb, ub, T,
+                            Sigma, x, x_prev, x_bar, y, tau, sigma, n_steps,
+                            gamma)
+
+
+def fused_ell_steps_plain(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T,
+                          Sigma, x, x_prev, x_bar, y, tau, sigma, *,
+                          n_steps: int, gamma: float):
+    """B5's plain version: ``n_steps`` ELL steps on the forward ELL of K
+    (m, Wf) and the stored ELL of K^T (n, Wa), optionally batched."""
+    return _run_steps_plain(
+        lambda v: ell_matvec_plain(data_f, cols_f, v),
+        lambda v: ell_matvec_plain(data_a, cols_a, v),
+        b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y, tau, sigma, n_steps,
+        gamma)
+
+
+def _state_for_kernel(m, n, B, b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y,
+                      tau, sigma, ref, n_steps):
+    """Checks the vectors and returns what the kernel writes: copies of
+    the state (it updates them in place), zeroed sums, per-lane step
+    sizes in and out and the schedule scratch."""
+    lead = (B,) if ref.dim() == 3 else ()
+    tau, sigma = lane_scalars(B, tau, sigma)
+    _build.check_cuda_operands(ref, b, c, lb, ub, T, Sigma, x, x_prev,
+                               x_bar, y, tau, sigma)
+    for v, d in ((b, m), (y, m), (Sigma, m), (c, n), (lb, n), (ub, n),
+                 (T, n), (x, n), (x_prev, n), (x_bar, n)):
+        if tuple(v.shape) != (*lead, d):
+            raise ValueError(f"expected a {(*lead, d)} vector, got "
+                             f"{tuple(v.shape)}")
+    opts = dict(dtype=ref.dtype, device=ref.device)
+    return dict(
+        x=x.clone(), x_prev=x_prev.clone(), x_bar=x_bar.clone(),
+        y=y.clone(), xs=torch.zeros_like(x), ys=torch.zeros_like(y),
+        tau_in=tau, sigma_in=sigma,
+        tau_out=torch.empty(lead, **opts), sigma_out=torch.empty(lead, **opts),
+        sched=torch.empty((3, max(int(n_steps), 1), B), **opts))
+
+
+def _outputs(s):
+    return (s["x"], s["x_prev"], s["x_bar"], s["y"], s["tau_out"],
+            s["sigma_out"], s["xs"], s["ys"])
+
+
 def fused_dense_steps(K, K_adj, b, c, lb, ub, T, Sigma,
                       x, x_prev, x_bar, y, tau, sigma, *,
                       n_steps: int, gamma: float):
-    """B3: ``n_steps`` fused dense PDHG steps; K (m, n), K_adj (n, m),
-    ``tau``/``sigma`` 0-d tensors.  Returns ``(x, x_prev, x_bar, y, tau,
-    sigma, x_sum, y_sum)``; the caller's tensors are not modified."""
+    """B3: ``n_steps`` fused dense PDHG steps; K (m, n) and K_adj (n, m),
+    or (B, m, n) and (B, n, m) with (B, d) vectors and (B,) step sizes.
+    Returns ``(x, x_prev, x_bar, y, tau, sigma, x_sum, y_sum)``; the
+    caller's tensors are not modified."""
     if _on_cpu(K):
         return fused_dense_steps_plain(
             K, K_adj, b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y, tau,
             sigma, n_steps=n_steps, gamma=gamma)
-    m, n = K.shape
-    _build.check_cuda_operands(K, K_adj, b, c, lb, ub, T, Sigma, x, x_prev,
-                               x_bar, y, tau, sigma)
-    if K_adj.shape != (n, m):
-        raise ValueError(f"K_adj must be ({n}, {m}), got "
+    if K.dim() not in (2, 3):
+        raise ValueError(f"K must be (m, n) or (B, m, n), got "
+                         f"{tuple(K.shape)}")
+    m, n = K.shape[-2:]
+    B = K.shape[0] if K.dim() == 3 else 1
+    if tuple(K_adj.shape) != (*K.shape[:-2], n, m):
+        raise ValueError(f"K_adj must be {(*K.shape[:-2], n, m)}, got "
                          f"{tuple(K_adj.shape)}")
-    for v, d in ((b, m), (y, m), (Sigma, m), (c, n), (lb, n), (ub, n),
-                 (T, n), (x, n), (x_prev, n), (x_bar, n)):
-        if v.shape != (d,):
-            raise ValueError(f"expected a ({d},) vector, got "
-                             f"{tuple(v.shape)}")
-    if tau.numel() != 1 or sigma.numel() != 1:
-        raise ValueError("tau and sigma are 0-d tensors")
-    # the kernel updates the state in place: give it copies
-    x, x_prev, x_bar, y = x.clone(), x_prev.clone(), x_bar.clone(), y.clone()
-    xs = torch.zeros_like(x)
-    ys = torch.zeros_like(y)
-    tau_out = torch.empty((), dtype=K.dtype, device=K.device)
-    sigma_out = torch.empty((), dtype=K.dtype, device=K.device)
+    _build.check_cuda_operands(K, K_adj)
+    s = _state_for_kernel(m, n, B, b, c, lb, ub, T, Sigma, x, x_prev, x_bar,
+                          y, tau, sigma, K, n_steps)
+    p = {k: v.data_ptr() for k, v in s.items()}
     _build.launch(
         "pdhg_fused_dense", K.dtype, K.data_ptr(), K_adj.data_ptr(),
         b.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-        T.data_ptr(), Sigma.data_ptr(), x.data_ptr(), x_prev.data_ptr(),
-        x_bar.data_ptr(), y.data_ptr(), tau.data_ptr(), sigma.data_ptr(),
-        tau_out.data_ptr(), sigma_out.data_ptr(), xs.data_ptr(),
-        ys.data_ptr(), m, n, int(n_steps), float(gamma))
+        T.data_ptr(), Sigma.data_ptr(), p["x"], p["x_prev"], p["x_bar"],
+        p["y"], p["tau_in"], p["sigma_in"], p["tau_out"], p["sigma_out"],
+        p["xs"], p["ys"], p["sched"], m, n, B, int(n_steps), float(gamma))
     fused_dense_steps.launches += 1
-    return x, x_prev, x_bar, y, tau_out, sigma_out, xs, ys
+    return _outputs(s)
+
+
+def fused_ell_steps(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
+                    x, x_prev, x_bar, y, tau, sigma, *,
+                    n_steps: int, gamma: float):
+    """B5: ``n_steps`` fused ELL PDHG steps; the forward ELL of K
+    (m, Wf) and the stored ELL of K^T (n, Wa), int32 columns, or the
+    same with a leading batch axis and (B,) step sizes.  Same returns as
+    ``fused_dense_steps``; the caller's tensors are not modified."""
+    if _on_cpu(data_f):
+        return fused_ell_steps_plain(
+            data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma, x,
+            x_prev, x_bar, y, tau, sigma, n_steps=n_steps, gamma=gamma)
+    B = batch_of(x)
+    m, wf = check_ell(data_f, cols_f)
+    n, wa = check_ell(data_a, cols_a)
+    lead = tuple(data_f.shape[:-2])
+    if tuple(data_a.shape[:-2]) != lead or (lead and lead[0] != B):
+        raise ValueError(f"the two ELL forms and the vectors must share "
+                         f"one batch, got {tuple(data_f.shape)}, "
+                         f"{tuple(data_a.shape)} and {tuple(x.shape)}")
+    s = _state_for_kernel(m, n, B, b, c, lb, ub, T, Sigma, x, x_prev, x_bar,
+                          y, tau, sigma, data_f, n_steps)
+    _build.check_cuda_operands(data_f, data_a, b)
+    p = {k: v.data_ptr() for k, v in s.items()}
+    _build.launch(
+        "pdhg_fused_ell", data_f.dtype, data_f.data_ptr(),
+        cols_f.data_ptr(), data_a.data_ptr(), cols_a.data_ptr(),
+        b.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+        T.data_ptr(), Sigma.data_ptr(), p["x"], p["x_prev"], p["x_bar"],
+        p["y"], p["tau_in"], p["sigma_in"], p["tau_out"], p["sigma_out"],
+        p["xs"], p["ys"], p["sched"], m, n, wf, wa, B, int(n_steps),
+        float(gamma))
+    fused_ell_steps.launches += 1
+    return _outputs(s)
 
 
 fused_dense_steps.launches = 0
+fused_ell_steps.launches = 0
+
+__all__ = ["fused_dense_steps", "fused_dense_steps_plain", "fused_ell_steps",
+           "fused_ell_steps_plain"]

@@ -14,6 +14,10 @@ through a device pointer, so a step size that changes every step (the
 ``dual_update``/``primal_update`` launch the kernel for CUDA tensors and
 take the plain version for CPU tensors, and only for them; each counts
 its kernel launches in ``.launches``.
+
+Both take an optional leading batch axis: vectors ``(B, d)`` with step
+sizes of shape ``(B,)`` (one per lane), run by one launch; a single
+instance is ``(d,)`` vectors with 0-d step sizes.
 """
 from __future__ import annotations
 
@@ -22,15 +26,24 @@ import torch
 from . import _build
 
 
+def per_lane(s, v):
+    """A step size against vectors ``v``: a (B,) tensor of per-lane
+    values becomes (B, 1) against (B, d) vectors; anything else (a 0-d
+    tensor, a number) is returned as it is."""
+    if torch.is_tensor(s) and 0 < s.dim() == v.dim() - 1:
+        return s.unsqueeze(-1)
+    return s
+
+
 def dual_update_plain(y, kxbar, b, Sigma, sigma):
     """Plain PyTorch version of the dual update (the kernel's oracle)."""
-    return y + sigma * Sigma * (b - kxbar)
+    return y + per_lane(sigma, y) * Sigma * (b - kxbar)
 
 
 def primal_update_plain(x, kty, c, T, lb, ub, tau, theta):
     """Plain PyTorch version of the primal update; returns (x_new, x̄)."""
-    x_new = torch.clamp(x - tau * T * (c - kty), lb, ub)
-    return x_new, x_new + theta * (x_new - x)
+    x_new = torch.clamp(x - per_lane(tau, x) * T * (c - kty), lb, ub)
+    return x_new, x_new + per_lane(theta, x) * (x_new - x)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -42,49 +55,73 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def _check_vectors(length: int, *vecs: torch.Tensor) -> None:
+def _check_vectors(shape, *vecs: torch.Tensor) -> None:
     for v in vecs:
-        if v.shape != (length,):
-            raise ValueError(f"expected a ({length},) vector, got "
+        if tuple(v.shape) != tuple(shape):
+            raise ValueError(f"expected a {tuple(shape)} vector, got "
                              f"{tuple(v.shape)}")
 
 
-def _check_scalars(*scalars: torch.Tensor) -> None:
+def lane_scalars(batch: int, *scalars: torch.Tensor):
+    """Step sizes as the kernels read them: one value per lane.  A 0-d
+    (or one-element) tensor serves every lane; otherwise the tensor must
+    hold ``batch`` values."""
+    out = []
     for s in scalars:
-        if s.numel() != 1:
-            raise ValueError(f"step sizes are 0-d tensors, got shape "
+        if not torch.is_tensor(s):
+            raise TypeError(f"kernel operands must be tensors, got "
+                            f"{type(s).__name__} (keep step sizes on the "
+                            f"device as 0-d tensors)")
+        if s.numel() == 1 and batch > 1:
+            s = s.reshape(1).expand(batch).contiguous()
+        elif s.numel() != batch:
+            raise ValueError(f"step sizes are 0-d tensors or hold one value "
+                             f"per lane ({batch}), got shape "
                              f"{tuple(s.shape)}")
+        out.append(s)
+    return out
+
+
+def batch_of(v: torch.Tensor) -> int:
+    """Lanes of a (d,) or (B, d) vector."""
+    if v.dim() not in (1, 2):
+        raise ValueError(f"expected a (d,) or (B, d) vector, got "
+                         f"{tuple(v.shape)}")
+    return v.shape[0] if v.dim() == 2 else 1
 
 
 def dual_update(y, kxbar, b, Sigma, sigma):
-    """B1: ``y + sigma * Sigma * (b - kxbar)``; ``sigma`` a 0-d tensor."""
+    """B1: ``y + sigma * Sigma * (b - kxbar)``; ``sigma`` a 0-d tensor,
+    or (B,) against (B, m) vectors."""
     if _on_cpu(y):
         return dual_update_plain(y, kxbar, b, Sigma, sigma)
+    B = batch_of(y)
+    (sigma,) = lane_scalars(B, sigma)
     _build.check_cuda_operands(y, kxbar, b, Sigma, sigma)
-    _check_vectors(y.shape[0], y, kxbar, b, Sigma)
-    _check_scalars(sigma)
+    _check_vectors(y.shape, y, kxbar, b, Sigma)
     out = torch.empty_like(y)
     _build.launch("pdhg_dual_update", y.dtype, y.data_ptr(),
                   kxbar.data_ptr(), b.data_ptr(), Sigma.data_ptr(),
-                  sigma.data_ptr(), out.data_ptr(), y.shape[0])
+                  sigma.data_ptr(), out.data_ptr(), y.shape[-1], B)
     dual_update.launches += 1
     return out
 
 
 def primal_update(x, kty, c, T, lb, ub, tau, theta):
-    """B2: returns ``(x_new, x_bar)``; ``tau``/``theta`` 0-d tensors and
-    the bounds may be ±inf."""
+    """B2: returns ``(x_new, x_bar)``; ``tau``/``theta`` 0-d tensors, or
+    (B,) against (B, n) vectors, and the bounds may be ±inf."""
     if _on_cpu(x):
         return primal_update_plain(x, kty, c, T, lb, ub, tau, theta)
+    B = batch_of(x)
+    tau, theta = lane_scalars(B, tau, theta)
     _build.check_cuda_operands(x, kty, c, T, lb, ub, tau, theta)
-    _check_vectors(x.shape[0], x, kty, c, T, lb, ub)
-    _check_scalars(tau, theta)
+    _check_vectors(x.shape, x, kty, c, T, lb, ub)
     x_new = torch.empty_like(x)
     x_bar = torch.empty_like(x)
     _build.launch("pdhg_primal_update", x.dtype, x.data_ptr(),
                   kty.data_ptr(), c.data_ptr(), T.data_ptr(), lb.data_ptr(),
                   ub.data_ptr(), tau.data_ptr(), theta.data_ptr(),
-                  x_new.data_ptr(), x_bar.data_ptr(), x.shape[0])
+                  x_new.data_ptr(), x_bar.data_ptr(), x.shape[-1], B)
     primal_update.launches += 1
     return x_new, x_bar
 

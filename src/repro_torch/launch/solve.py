@@ -9,11 +9,21 @@
       --refine-rounds 2            # digital refinement on the same cells
   PYTHONPATH=src python -m repro_torch.launch.solve --torch-device cpu \
       --kernel torch               # plain PyTorch on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.solve --backend batch \
+      --instances rand:8x14,rand:10x18,rand:24x40   # bucketed stream
+  PYTHONPATH=src python -m repro_torch.launch.solve --backend batch \
+      --sparse --instances sprand:96x192:0.05,sprand:128x256:0.02
+      # sparse ELL stream: B4 on every MVM (B5 with --megakernel)
+  PYTHONPATH=src python -m repro_torch.launch.solve --backend batch \
+      --device taox --instances rand:8x14,rand:10x18,rand:24x40
+      # device-tile-aware stream through the crossbar simulator
 
 ``--backend exact`` runs the dense ``solve_jit``; ``epiram``/``taox``
-run ``crossbar.solve_crossbar_jit`` on that device model.  ``batch`` and
-``distributed`` exit with an error that names the ROADMAP item bringing
-them.  ``--device`` stays reserved for the crossbar device model of the
+run ``crossbar.solve_crossbar_jit`` on that device model; ``batch``
+serves ``--instances`` through ``runtime.BatchSolver`` (or, with
+``--device``, ``crossbar.solve_crossbar_stream``).  ``distributed``,
+``--pods`` and ``--cluster`` exit with an error that names the ROADMAP
+item bringing them.  ``--device`` is the crossbar device model of the
 batch stream, as in the reference; the hardware is chosen with
 ``--torch-device``.
 """
@@ -25,7 +35,12 @@ import dataclasses
 from ..core.engine import KERNELS, STEP_RULES
 from ..core.lanczos import NORM_BACKENDS
 from ..core.pdhg import PDHGOptions, solve_jit
-from ..crossbar import EPIRAM, TAOX_HFOX, solve_crossbar_jit
+from ..crossbar import (
+    EPIRAM,
+    TAOX_HFOX,
+    solve_crossbar_jit,
+    solve_crossbar_stream,
+)
 from ..lp import (
     TABLE1_SIZES,
     pagerank_lp,
@@ -36,7 +51,6 @@ from ..lp import (
 
 # backends of the reference CLI that later slices bring (ROADMAP queue A)
 NOT_PORTED = {
-    "batch": "A5 (bucketed batch serving)",
     "distributed": "A6 (distributed and cluster)",
 }
 CROSSBAR_BACKENDS = {"epiram": EPIRAM, "taox": TAOX_HFOX}
@@ -49,8 +63,7 @@ def load_instance(spec: str, seed: int = 0):
         m, n = spec[5:].split("x")
         return random_standard_lp(int(m), int(n), seed=seed)
     if spec.startswith("sprand:"):
-        # sprand:MxN[:density] — COO-native sparse instance (densified by
-        # the dense solve)
+        # sprand:MxN[:density] — COO-native sparse instance
         parts = spec[7:].split(":")
         m, n = parts[0].split("x")
         density = float(parts[1]) if len(parts) > 1 else 0.05
@@ -64,8 +77,33 @@ def load_instance(spec: str, seed: int = 0):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
     ap.add_argument("--instance", default="gen-ip002")
+    ap.add_argument("--instances", default=None,
+                    help="comma-separated specs for --backend batch")
     ap.add_argument("--backend", default="exact",
-                    choices=["exact", *CROSSBAR_BACKENDS, *NOT_PORTED])
+                    choices=["exact", *CROSSBAR_BACKENDS, "batch",
+                             *NOT_PORTED])
+    ap.add_argument("--device", default="none",
+                    choices=["none", *CROSSBAR_BACKENDS],
+                    help="with --backend batch: serve the stream through "
+                         "the device-tile-aware crossbar simulator")
+    ap.add_argument("--sparse", action="store_true",
+                    help="with --backend batch: serve the stream through "
+                         "the sparse pipeline (instances loaded as "
+                         "sprand: specs are sparse already; dense specs "
+                         "are converted).  Memory is proportional to "
+                         "nonzeros — no dense (B, m, n) stack exists")
+    ap.add_argument("--sync", action="store_true",
+                    help="with --backend batch: serve one bucket at a "
+                         "time instead of interleaving the buckets' "
+                         "windows on their own CUDA streams")
+    ap.add_argument("--norm-reuse", action="store_true",
+                    help="with --backend batch: reuse operator-norm "
+                         "estimates across stream passes, keyed by "
+                         "(shape bucket, sparsity fingerprint)")
+    ap.add_argument("--cluster", default="off", choices=["auto", "off"],
+                    help="multi-host serving (not ported yet)")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="route buckets across N pods (not ported yet)")
     ap.add_argument("--kernel", default="cuda", choices=KERNELS,
                     help="update backend: the hand-written CUDA kernels "
                          "(their plain versions on CPU tensors) or plain "
@@ -73,7 +111,7 @@ def main(argv=None):
                          "pallas | jnp")
     ap.add_argument("--megakernel", action="store_true",
                     help="run each check window as one CUDA launch "
-                         "(noiseless: --backend exact only)")
+                         "(noiseless paths: --backend exact and batch)")
     ap.add_argument("--torch-device", default="cuda",
                     choices=["cuda", "cpu"],
                     help="hardware the solve runs on")
@@ -104,7 +142,12 @@ def main(argv=None):
     if args.backend in NOT_PORTED:
         ap.error(f"--backend {args.backend} is not ported yet; ROADMAP "
                  f"item {NOT_PORTED[args.backend]} brings it")
-    crossbar_backend = args.backend in CROSSBAR_BACKENDS
+    if args.cluster != "off" or args.pods is not None:
+        ap.error(f"--cluster/--pods are not ported yet; ROADMAP item "
+                 f"{NOT_PORTED['distributed']} brings them")
+    crossbar_backend = (args.backend in CROSSBAR_BACKENDS
+                        or (args.backend == "batch"
+                            and args.device != "none"))
     # the reference's rules, word for word
     if (args.refine_rounds or args.refine_tol or args.ecc != 1) \
             and not crossbar_backend:
@@ -115,6 +158,21 @@ def main(argv=None):
                  "digital paths have neither")
     if args.ecc < 1:
         ap.error("--ecc must be >= 1 (1 = replication off)")
+    if args.device != "none" and args.backend != "batch":
+        ap.error("--device only applies to --backend batch "
+                 "(use --backend epiram/taox for single instances)")
+    if (args.sparse or args.sync) and args.backend != "batch":
+        ap.error("--sparse/--sync only apply to --backend batch")
+    if args.sparse and args.device != "none":
+        ap.error("--sparse does not combine with --device: a crossbar "
+                 "programs every physical cell, so device streams are "
+                 "served densely")
+    if args.norm_reuse and (args.backend != "batch"
+                            or args.device != "none"):
+        ap.error("--norm-reuse only applies to --backend batch without "
+                 "--device (single solves estimate the norm once by "
+                 "construction; the crossbar stream programs every cell "
+                 "per instance, so there is nothing to reuse)")
 
     opts = PDHGOptions(max_iters=args.max_iters, tol=args.tol,
                        check_every=100, seed=args.seed,
@@ -123,6 +181,8 @@ def main(argv=None):
                        norm_backend=args.norm_backend,
                        refine_rounds=args.refine_rounds,
                        refine_tol=args.refine_tol)
+    if args.backend == "batch":
+        return _serve_stream(args, opts)
     lp = load_instance(args.instance, seed=args.seed)
     led = None
     if crossbar_backend:
@@ -157,6 +217,65 @@ def main(argv=None):
               f"read={led.read_energy_j:.4f}J | latency: "
               f"write={led.write_latency_s:.4f}s read={led.read_latency_s:.4f}s")
     return res
+
+
+def _serve_stream(args, opts):
+    """``--backend batch``: the reference's per-instance lines and, for
+    exact streams, its ``stream:`` line."""
+    from ..runtime import BatchSolver
+
+    specs = (args.instances or args.instance).split(",")
+    lps = [load_instance(s.strip(), seed=args.seed + i)
+           for i, s in enumerate(specs)]
+    if args.device != "none":
+        dev = CROSSBAR_BACKENDS[args.device]
+        if args.ecc != 1:
+            dev = dataclasses.replace(dev, ecc=args.ecc)
+        reports = solve_crossbar_stream(lps, opts, device=dev,
+                                        torch_device=args.torch_device)
+        for lp, rep in zip(lps, reports):
+            r, led = rep.result, rep.ledger
+            line = (f"instance={lp.name} shape={lp.K.shape} "
+                    f"device={dev.name} status={r.status} "
+                    f"iters={r.iterations} objective={r.obj:.6f}")
+            if lp.obj_opt is not None:
+                rel = abs(r.obj - lp.obj_opt) / max(abs(lp.obj_opt), 1e-12)
+                line += (f" (known optimum {lp.obj_opt:.6f}, "
+                         f"rel err {rel:.2e})")
+            line += (f" | write={led.write_energy_j:.4f}J "
+                     f"(padding {led.write_energy_padding_j:.4f}J"
+                     + (f", ecc {led.write_energy_ecc_j:.4f}J"
+                        if dev.ecc > 1 else "")
+                     + f") read={led.read_energy_j:.4f}J")
+            if args.refine_rounds:
+                line += (f" | refine: rounds={args.refine_rounds} "
+                         f"executed_iters={rep.executed_iterations} "
+                         f"digital_mvms={rep.digital_mvms}")
+            print(line)
+        return reports
+    if args.sparse:
+        lps = [lp.sparsified() for lp in lps]
+    solver = BatchSolver(opts, async_dispatch=not args.sync,
+                         norm_reuse=args.norm_reuse,
+                         torch_device=args.torch_device)
+    results = solver.solve_stream(lps)
+    for lp, r in zip(lps, results):
+        line = (f"instance={r.name} shape={lp.K.shape} "
+                f"bucket={r.bucket} status={r.status} "
+                f"iters={r.iterations} objective={r.obj:.6f}")
+        if r.sparse:
+            line += f" sparse(nnz={lp.K.nnz})"
+        if lp.obj_opt is not None:
+            rel = abs(r.obj - lp.obj_opt) / max(abs(lp.obj_opt), 1e-12)
+            line += f" (known optimum {lp.obj_opt:.6f}, rel err {rel:.2e})"
+        print(line)
+    st = solver.last_stream_stats
+    print(f"stream: buckets={st['n_buckets']} "
+          f"dispatch={st['dispatch_s']:.3f}s "
+          f"collect={st['collect_s']:.3f}s "
+          f"host_stack_bytes=dense:{st['dense_stack_bytes']}"
+          f"/sparse:{st['sparse_stack_bytes']}")
+    return results
 
 
 if __name__ == "__main__":

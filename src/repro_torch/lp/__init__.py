@@ -2,10 +2,12 @@
 ``repro.lp`` so that the same seed gives byte-identical instances."""
 from .problem import INF, LPProblem, SparseCOO, StandardLP, split_standard_solution
 from .generators import (
+    SPARSE_STREAM_SHAPES,
     TABLE1_SIZES,
     assignment_lp,
     pagerank_lp,
     random_standard_lp,
+    sparse_lp_stream,
     sparse_random_standard_lp,
     table1_instance,
 )
@@ -16,10 +18,12 @@ __all__ = [
     "SparseCOO",
     "StandardLP",
     "split_standard_solution",
+    "SPARSE_STREAM_SHAPES",
     "TABLE1_SIZES",
     "assignment_lp",
     "pagerank_lp",
     "random_standard_lp",
+    "sparse_lp_stream",
     "sparse_random_standard_lp",
     "table1_instance",
 ]

@@ -12,6 +12,19 @@ import pytest
 KERNEL_NAMES = {"jnp": "torch", "pallas": "cuda"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's CPU torch work on one thread (imported by the batch
+    test modules): their tensors are tiny, and with several test workers
+    on one host, torch's own thread pools only contend for the cores."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def reference():
     """The reference modules, or a skip where JAX is not installed."""
     pytest.importorskip("jax")
@@ -66,6 +79,53 @@ def reference_host_draws(lp, opts):
                   scaled.ub)
     y0 = jax.random.normal(ky, (m,), dtype=dt)
     return Draws(np.asarray(x0), np.asarray(y0), v0)
+
+
+def reference_batch_draws(seed: int = 0, crossbar_device=None):
+    """The per-lane draws of the reference's bucket pipelines, as the
+    port's ``solve_stream(draws=...)`` takes them: ``draws(position, mb,
+    nb) -> Draws``.
+
+    A lane's key is ``BatchSolver._instance_keys`` (``fold_in(PRNGKey(
+    seed), position)``; filler lanes have positions past the stream's
+    end).  The dense, COO and ELL pipelines draw x0/y0 with
+    ``engine.draw_init(key, mb, nb, ...)`` (``batch.py:853-861``,
+    ``engine.py:719``); the crossbar pipeline first splits ``enc_key,
+    solve_key = split(key)``, programs with ``split(enc_key)``'s two
+    normals at the tile-padded array shape (``encode.py:146-149``) and
+    draws x0/y0 from ``solve_key`` (``solver.py:154``).  ``x0`` is
+    returned unclipped (``draw_init`` on infinite bounds); the port clips
+    it to its own scaled padded bounds, which is ``draw_init`` on them.
+    The norm estimate's start is ``normal(PRNGKey(0), (mb + nb,))`` for
+    every lane (``lanczos.py:127-130``, ``:176-180``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.runtime.batch import BatchSolver
+    from repro_torch.interop import Draws
+
+    engine, pdhg = reference()
+    keys = BatchSolver(pdhg.PDHGOptions(seed=seed))
+    inf = jnp.inf
+
+    def draws(position, mb, nb):
+        key = keys._instance_keys([position], position + 1, 1)[0]
+        program = None
+        if crossbar_device is not None:
+            from repro.crossbar.solver import _array_dims
+
+            enc_key, key = jax.random.split(key)
+            shape = _array_dims(mb, nb, crossbar_device)
+            k1, k2 = jax.random.split(enc_key)
+            program = (np.asarray(jax.random.normal(k1, shape, jnp.float64)),
+                       np.asarray(jax.random.normal(k2, shape, jnp.float64)))
+        _, x0, y0 = engine.draw_init(key, mb, nb, -inf, inf, jnp.float64)
+        v0 = jax.random.normal(jax.random.PRNGKey(0), (mb + nb,),
+                               jnp.float64)
+        return Draws(np.asarray(x0), np.asarray(y0), np.asarray(v0),
+                     program)
+
+    return draws
 
 
 def noiseless_device(dev):

@@ -37,7 +37,8 @@ def test_importing_the_port_loads_no_jax_module():
     code = (
         "import sys\n"
         "import repro_torch.launch.solve, repro_torch.core, "
-        "repro_torch.kernels, repro_torch.interop\n"
+        "repro_torch.kernels, repro_torch.interop, repro_torch.runtime, "
+        "repro_torch.crossbar\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -1,11 +1,13 @@
-"""The port's kernels B1-B3 and B6.
+"""The port's kernels B1-B6.
 
 On the CPU: each plain version against the reference's Pallas kernel run
 in interpret mode (f64 to 1e-15 for the elementwise updates, 1e-12 for a
-check window; f32 to 1e-6; B6's in ``test_torch_crossbar.py``), and the
-wrappers' rule that only a CPU tensor takes the plain version.  On a card (``cuda`` marker, skipped
+check window; f32 to 1e-6; B6's in ``test_torch_crossbar.py``, B4's and
+B5's in ``test_torch_sparse.py``), and the wrappers' rule that only a
+CPU tensor takes the plain version.  On a card (``cuda`` marker, skipped
 without one): each CUDA kernel against its plain version on the same
-inputs, and its launch counter.
+inputs, batched (B1-B5 with a leading batch axis) and not, and its
+launch counter.
 """
 import numpy as np
 import pytest
@@ -124,6 +126,8 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     # plain versions are not launches
     assert kernels.launch_counts() == {"dual_update": 0, "primal_update": 0,
                                        "fused_dense_steps": 0,
+                                       "ell_matvec": 0,
+                                       "fused_ell_steps": 0,
                                        "crossbar_mvm": 0}
 
 
@@ -134,6 +138,28 @@ def test_wrappers_refuse_other_devices():
         tupd.dual_update(v, v, v, v, s)
     with pytest.raises(ValueError, match="run on CUDA"):
         tupd.primal_update(v, v, v, v, v, v, s, s)
+
+
+def test_build_digest_covers_every_included_header(tmp_path, monkeypatch):
+    """A changed header rebuilds the library: the digest hashes every
+    file the sources include, not only the sources."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    files = _build.included_files()
+    assert files[:len(_build.SOURCES)] == _build.SOURCES
+    assert "pdhg_common.cuh" in files
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    header = csrc / "pdhg_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest() != before
+    # a file in csrc/ that no source includes does not count
+    (csrc / "unused.cuh").write_text("// not included\n")
+    assert "unused.cuh" not in _build.included_files()
 
 
 # ------------------------------------------------------------ on a card ---
@@ -180,6 +206,8 @@ def test_update_kernels_match_plain_on_card(cuda, dtype, tol, d):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"dual_update": 1, "primal_update": 1,
                                        "fused_dense_steps": 0,
+                                       "ell_matvec": 0,
+                                       "fused_ell_steps": 0,
                                        "crossbar_mvm": 0}
 
 
@@ -275,3 +303,206 @@ def test_crossbar_mvm_kernel_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         xb.crossbar_mvm(gp.T, gn.T, v[:8], 1.0, torch.zeros(
             16, dtype=torch.float64, device=cuda))
+
+
+# --------------------------------------------------- batched B1-B3 (A5) ---
+
+def _batch_window(dev, dtype, B, m, n, seed=0):
+    """A stack of B well-posed windows with per-lane step sizes."""
+    ws = [_window(seed + k, m, n) for k in range(B)]
+    out = {k: torch.as_tensor(np.stack([w[k] for w in ws]), device=dev,
+                              dtype=dtype) for k in ws[0]}
+    out["tau"] = torch.tensor([0.3, 0.2, 0.25][:B], device=dev, dtype=dtype)
+    out["sigma"] = torch.tensor([0.3, 0.4, 0.35][:B], device=dev,
+                                dtype=dtype)
+    return out
+
+
+# batched B1/B2: one elementwise pass, FMA contraction the only
+# difference (the limits chip_smoke.py holds them to)
+BATCH_UPDATE_TOLS = [(torch.float64, 1e-14), (torch.float32, 1e-6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", BATCH_UPDATE_TOLS, ids=["f64", "f32"])
+def test_batched_update_kernels_match_plain_on_card(cuda, dtype, tol):
+    w = _batch_window(cuda, dtype, 3, 37, 4099)
+    kx = torch.rand(3, 37, device=cuda, dtype=dtype)
+    kty = torch.rand(3, 4099, device=cuda, dtype=dtype)
+    theta = torch.tensor([0.93, 1.0, 0.97], device=cuda, dtype=dtype)
+    kernels.reset_launch_counts()
+    out = tupd.dual_update(w["y"], kx, w["b"], w["Sigma"], w["sigma"])
+    assert _rel([out], [tupd.dual_update_plain(
+        w["y"], kx, w["b"], w["Sigma"], w["sigma"])]) <= tol
+    outs = tupd.primal_update(w["x"], kty, w["c"], w["T"], w["lb"], w["ub"],
+                              w["tau"], theta)
+    refs = tupd.primal_update_plain(w["x"], kty, w["c"], w["T"], w["lb"],
+                                    w["ub"], w["tau"], theta)
+    assert _rel(outs, refs) <= tol
+    # each lane equals its own single-instance launch, bit for bit
+    for k in range(3):
+        one = tupd.dual_update(w["y"][k], kx[k], w["b"][k], w["Sigma"][k],
+                               w["sigma"][k].clone())
+        assert torch.equal(one, out[k])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dual_update"] == 4
+    assert kernels.launch_counts()["primal_update"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("gamma", [0.0, 0.05])
+def test_batched_fused_dense_kernel_matches_plain_on_card(cuda, dtype, tol,
+                                                          gamma):
+    w = _batch_window(cuda, dtype, 3, 133, 217, seed=5)
+    before = {k: v.clone() for k, v in w.items()}
+    kernels.reset_launch_counts()
+    outs = tmk.fused_dense_steps(**w, n_steps=50, gamma=gamma)
+    refs = tmk.fused_dense_steps_plain(**w, n_steps=50, gamma=gamma)
+    assert _rel(outs, refs) <= tol
+    assert all(torch.equal(w[k], before[k]) for k in w)
+    assert outs[4].shape == (3,)
+    assert kernels.launch_counts()["fused_dense_steps"] == 1
+
+
+# ------------------------------------------------------------- B4, B5 ---
+
+# B4: one row sum of up to 64 slots, group-strided in the kernel and in
+# torch's order in the plain version; B5: 50 steps of them
+B4_TOLS = [(torch.float64, 1e-13), (torch.float32, 1e-5)]
+B5_TOLS = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
+
+
+def _ell(dev, dtype, lead, m, n, W, seed=0):
+    """Random ELL values with valid columns, and a vector to gather."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    data = torch.randn((*lead, m, W), generator=g, dtype=dtype, device=dev)
+    cols = torch.randint(0, n, (*lead, m, W), generator=g, device=dev,
+                         dtype=torch.int32)
+    v = torch.randn((*lead, n), generator=g, dtype=dtype, device=dev)
+    return data, cols, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", B4_TOLS, ids=["f64", "f32"])
+@pytest.mark.parametrize("lead,m,n,W", [((), 777, 1235, 13), ((), 5, 9, 1),
+                                        ((), 2048, 4096, 64),
+                                        ((3,), 300, 517, 7),
+                                        ((3,), 129, 1000, 40)],
+                         ids=["ragged", "tiny", "wide", "batch3-narrow",
+                              "batch3-wide"])
+def test_ell_matvec_kernel_matches_plain_on_card(cuda, dtype, tol, lead, m,
+                                                 n, W):
+    from repro_torch.kernels import sparse_mvm as sm
+
+    data, cols, v = _ell(cuda, dtype, lead, m, n, W)
+    kernels.reset_launch_counts()
+    out = sm.ell_matvec(data, cols, v)
+    ref = sm.ell_matvec_plain(data, cols, v)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (*lead, m)
+    assert _rel([out], [ref]) <= tol
+    assert kernels.launch_counts()["ell_matvec"] == 1
+
+
+@pytest.mark.cuda
+def test_ell_matvec_kernel_reads_a_strided_slice(cuda):
+    from repro_torch.kernels import sparse_mvm as sm
+
+    data, cols, _ = _ell(cuda, torch.float64, (3,), 50, 40, 6, seed=2)
+    full = torch.randn(3, 90, dtype=torch.float64, device=cuda)
+    out = sm.ell_matvec(data, cols, full[:, 50:])
+    ref = sm.ell_matvec_plain(data, cols, full[:, 50:].contiguous())
+    torch.cuda.synchronize()
+    assert _rel([out], [ref]) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_ell_matvec_kernel_width_zero_and_bad_operands(cuda):
+    from repro_torch.kernels import sparse_mvm as sm
+
+    data, cols, v = _ell(cuda, torch.float64, (2,), 6, 10, 0)
+    kernels.reset_launch_counts()
+    out = sm.ell_matvec(data, cols, v)
+    assert torch.equal(out, torch.zeros(2, 6, dtype=torch.float64,
+                                        device=cuda))
+    assert kernels.launch_counts()["ell_matvec"] == 0
+    data, cols, v = _ell(cuda, torch.float64, (), 6, 10, 3)
+    with pytest.raises(TypeError, match="int32"):
+        sm.ell_matvec(data, cols.long(), v)
+    with pytest.raises(TypeError):
+        sm.ell_matvec(data, cols, v.float())
+
+
+def _ell_window(dev, dtype, B, m, n, wf, wa, seed=0):
+    """A stack of B ELL windows: K sparse with about wf entries a row,
+    scaled to ||K|| ~ 1, both ELL forms built from the same COO."""
+    from repro_torch.kernels.sparse_mvm import ell_from_coo
+
+    rng = np.random.default_rng(seed)
+    forms = {"data_f": [], "cols_f": [], "data_a": [], "cols_a": []}
+    for _ in range(B):
+        mask = rng.random((m, n)) < min(1.0, wf / n)
+        K = rng.normal(size=(m, n)) * mask / np.sqrt(wf)
+        r, c = np.nonzero(K)
+        d = K[r, c]
+        W_f = int(np.bincount(r, minlength=m).max())
+        W_a = int(np.bincount(c, minlength=n).max())
+        df, cf = ell_from_coo(d, r, c, (m, n), width=max(W_f, wf))
+        da, ca = ell_from_coo(d, c, r, (n, m), width=max(W_a, wa))
+        for k, a in (("data_f", df), ("cols_f", cf), ("data_a", da),
+                     ("cols_a", ca)):
+            forms[k].append(a)
+    Wf = max(a.shape[1] for a in forms["data_f"])
+    Wa = max(a.shape[1] for a in forms["data_a"])
+    pad = {"data_f": Wf, "cols_f": Wf, "data_a": Wa, "cols_a": Wa}
+    out = {k: torch.as_tensor(np.stack([np.pad(a, ((0, 0),
+                                                   (0, pad[k] - a.shape[1])))
+                                        for a in v]), device=dev,
+                              dtype=torch.int32 if k.startswith("cols")
+                              else dtype)
+           for k, v in forms.items()}
+    vec = _batch_window(dev, dtype, B, m, n, seed=seed + 1)
+    for k in ("b", "c", "lb", "ub", "T", "Sigma", "x", "x_prev", "x_bar",
+              "y", "tau", "sigma"):
+        out[k] = vec[k]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", B5_TOLS, ids=["f64", "f32"])
+@pytest.mark.parametrize("gamma", [0.0, 0.05])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_ell_kernel_matches_plain_on_card(cuda, dtype, tol, gamma, B):
+    w = _ell_window(cuda, dtype, B, 301, 517, 9, 6, seed=3)
+    if B == 1:
+        w = {k: v[0] for k, v in w.items()}
+    before = {k: v.clone() for k, v in w.items()}
+    kernels.reset_launch_counts()
+    outs = tmk.fused_ell_steps(**w, n_steps=50, gamma=gamma)
+    refs = tmk.fused_ell_steps_plain(**w, n_steps=50, gamma=gamma)
+    assert _rel(outs, refs) <= tol
+    assert all(torch.equal(w[k], before[k]) for k in w)
+    assert kernels.launch_counts()["fused_ell_steps"] == 1
+
+
+@pytest.mark.cuda
+def test_stepped_and_fused_ell_windows_agree_on_card(cuda):
+    """B4 + B1 + B4 + B2 a step and one B5 launch reduce every ELL row in
+    the same order and apply the same element algebra."""
+    from repro_torch.core import engine
+
+    w = _ell_window(cuda, torch.float64, 3, 200, 333, 8, 8, seed=7)
+    op = engine.sparse_ell_operator(w["data_f"], w["cols_f"], w["data_a"],
+                                    w["cols_a"])
+    s = engine.PDHGState(w["x"], w["x_prev"], w["x_bar"], w["y"], w["tau"],
+                         w["sigma"])
+    vecs = (w["b"], w["c"], w["lb"], w["ub"], w["T"], w["Sigma"])
+    for _ in range(40):
+        s = engine.pdhg_step(op, engine.CUDA_UPDATES, *vecs, 0.0, s)
+    fused = tmk.fused_ell_steps(**w, n_steps=40, gamma=0.0)
+    torch.cuda.synchronize()
+    for a, b in zip((s.x, s.x_prev, s.x_bar, s.y), fused[:4]):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())

@@ -4,18 +4,24 @@ issues must match it.  A ``TorchDispatchMode`` counts every aten
 matrix-vector and matrix-matrix product on the CPU:
 
 * each check window issues exactly ``mvm_window_budget(check_every,
-  restart)``, stepped or through the megakernel's plain version;
+  restart)``, stepped or through the megakernel's plain version, in the
+  single-instance loop and in the batched loop (dense, ELL and COO
+  operators over a bucket of lanes);
 * ``step_rule="adaptive"`` adds none over ``"fixed"``;
 * the norm estimate issues one per iteration, and a whole ``solve_jit``
   issues ``mvm_calls`` plus the two digital products of its post-hoc
-  residual, which the reference does not charge either.
+  residual, which the reference does not charge either; Lanczos adds
+  the ``RITZ_PRODUCTS`` (k, k) products of its on-device Ritz value,
+  digital work on the tridiagonal matrix (the reference's ``eigvalsh``).
 """
 import pytest
 import torch
+from _torch_parity import one_torch_thread  # noqa: F401  (a fixture)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import engine
 from repro_torch.core import pdhg as tp
+from repro_torch.core.lanczos import RITZ_PRODUCTS
 from repro_torch.core.residuals import kkt_residuals
 from repro_torch.lp import table1_instance
 
@@ -68,12 +74,13 @@ def _window_counts(rule, restart, megakernel):
             return kkt_residuals(x, x_prev, y, s.c, s.b, Kx, KTy,
                                  lb=s.lb, ub=s.ub).max
 
-        _, _, it, _ = engine.pdhg_loop(
+        _, _, it, _, windows = engine.drain(engine.pdhg_loop(
             op, engine.make_updates("cuda"), s.b, s.c, s.lb, s.ub, T, Sigma,
             x0, y0, 0.5, 0.5, max_iters=WINDOWS * CHECK_EVERY, tol=0.0,
             gamma=gamma, check_every=CHECK_EVERY, restart_beta=0.5,
-            restart=restart, step_rule=rule, residual_fn=residual_fn)
-    assert it == WINDOWS * CHECK_EVERY
+            restart=restart, step_rule=rule, residual_fn=residual_fn))
+    assert windows == WINDOWS
+    assert it.shape == () and int(it) == WINDOWS * CHECK_EVERY
     ends = marks[per_window - 1::per_window]
     assert len(ends) == WINDOWS
     return [b - a for a, b in zip([0] + ends[:-1], ends)]
@@ -111,7 +118,8 @@ def test_solve_issues_what_the_ledger_charges(norm_backend, restart):
         res = tp.solve_jit(lp, opts, device="cpu")
     assert res.mvm_calls == engine.mvm_accounting(
         res.iterations, CHECK_EVERY, opts.lanczos_iters, restart=restart)
-    assert counter.count == res.mvm_calls + 2
+    ritz = RITZ_PRODUCTS if norm_backend == "lanczos" else 0
+    assert counter.count == res.mvm_calls + 2 + ritz
 
 
 def test_norm_estimate_issues_one_product_per_iteration():
@@ -119,4 +127,96 @@ def test_norm_estimate_issues_one_product_per_iteration():
     opts = tp.PDHGOptions(lanczos_iters=23)
     with ProductCounter() as counter:
         tp._norm_estimate(s.K, T, Sigma, opts, None)
-    assert counter.count == 23
+    assert counter.count == 23 + RITZ_PRODUCTS
+
+
+# ----------------------------------------------------- the batched loop ---
+
+def _batch_window_counts(rule, restart, megakernel, kind):
+    """Products issued in each window of the batched loop over a bucket
+    of three lanes (a dense stack counted through the aten products; the
+    ELL and COO operators counted at their two MVM entry points)."""
+    from repro_torch.runtime import batch as tb
+
+    lps = [table1_instance("gen-ip002")] * 3
+    B, (m, n) = 3, lps[0].K.shape
+    opts = tp.PDHGOptions()
+    stacked = tb.stack_problems(lps, m=m, n=n)
+    K, b, c, lb, ub = (torch.as_tensor(a) for a in stacked)
+    Ks, bs, cs, lbs, ubs, T, Sigma, _, _ = tb.prep_scale(K, b, c, lb, ub,
+                                                         opts)
+    gamma = RULES[rule]
+    if kind == "dense":
+        op = engine.dense_operator(Ks, Ks.transpose(1, 2))
+        if megakernel:
+            op = op._replace(fuse=engine.make_fused_dense(
+                Ks, Ks.transpose(1, 2).contiguous(), bs, cs, lbs, ubs, T,
+                Sigma, gamma))
+    else:
+        sp = [lp.sparsified() for lp in lps]
+        if kind == "ell":
+            df, cf, da, ca = (torch.as_tensor(a) for a in
+                              tb.stack_problems_ell(sp, m=m, n=n)[:4])
+            op = engine.sparse_ell_operator(df, cf, da, ca)
+            if megakernel:
+                op = op._replace(fuse=engine.make_fused_ell(
+                    df, cf, da, ca, bs, cs, lbs, ubs, T, Sigma, gamma))
+        else:
+            K_sp = torch.stack([torch.as_tensor(lp.K_dense)
+                                for lp in lps]).to_sparse()
+            op = engine.sparse_operator(K_sp)
+    calls = [0]
+
+    def counted(f):
+        def g(v):
+            calls[0] += 1
+            return f(v)
+        return g
+
+    if kind != "dense":
+        op = op._replace(fwd=counted(op.fwd), adj=counted(op.adj))
+        if op.fuse is not None:
+            fuse = op.fuse
+
+            def fused(state, n_steps):
+                calls[0] += 2 * n_steps      # one launch, 2 MVMs a step
+                return fuse(state, n_steps)
+            op = op._replace(fuse=fused)
+    g = torch.Generator().manual_seed(0)
+    x0 = torch.clamp(torch.randn(B, n, generator=g, dtype=torch.float64),
+                     lbs, ubs)
+    y0 = torch.randn(B, m, generator=g, dtype=torch.float64)
+    per_window = 2 if restart else 1
+    marks = []
+    with ProductCounter() as counter:
+        def residual_fn(x, x_prev, y, Kx, KTy):
+            marks.append(counter.count + calls[0])
+            return kkt_residuals(x, x_prev, y, cs, bs, Kx, KTy, lb=lbs,
+                                 ub=ubs).max
+
+        _, _, its, _, windows = engine.drain(engine.pdhg_loop(
+            op, engine.make_updates("cuda"), bs, cs, lbs, ubs, T, Sigma,
+            x0, y0, 0.5, 0.5, max_iters=WINDOWS * CHECK_EVERY, tol=0.0,
+            gamma=gamma, check_every=CHECK_EVERY, restart_beta=0.5,
+            restart=restart, step_rule=rule, residual_fn=residual_fn))
+    assert windows == WINDOWS
+    assert its.tolist() == [WINDOWS * CHECK_EVERY] * B
+    ends = marks[per_window - 1::per_window]
+    assert len(ends) == WINDOWS
+    return [b - a for a, b in zip([0] + ends[:-1], ends)]
+
+
+@pytest.mark.parametrize("kind,megakernel", [("dense", False),
+                                             ("dense", True),
+                                             ("ell", False), ("ell", True),
+                                             ("coo", False)],
+                         ids=["dense", "dense-megakernel", "ell",
+                              "ell-megakernel", "coo"])
+@pytest.mark.parametrize("restart", [True, False],
+                         ids=["restart", "norestart"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_each_batched_window_issues_its_budget(rule, restart, megakernel,
+                                               kind):
+    counts = _batch_window_counts(rule, restart, megakernel, kind)
+    assert counts == [engine.mvm_window_budget(CHECK_EVERY, restart)] \
+        * WINDOWS

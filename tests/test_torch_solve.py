@@ -110,11 +110,13 @@ def test_cli_solves_the_default_instance_on_cpu():
     assert "status=optimal" in out.stdout
 
 
-@pytest.mark.parametrize("backend,item", [("batch", "A5"),
-                                          ("distributed", "A6")])
-def test_cli_names_the_roadmap_item_of_unported_backends(capsys, backend,
-                                                         item):
+@pytest.mark.parametrize("argv,item", [
+    (["--backend", "distributed"], "A6"),
+    (["--backend", "batch", "--pods", "2"], "A6"),
+    (["--backend", "batch", "--cluster", "auto"], "A6"),
+], ids=["distributed-A6", "batch-pods-A6", "batch-cluster-A6"])
+def test_cli_names_the_roadmap_item_of_unported_backends(capsys, argv, item):
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--backend", backend, "--torch-device", "cpu"])
+        cli.main([*argv, "--torch-device", "cpu"])
     assert exc.value.code == 2
     assert f"ROADMAP item {item}" in capsys.readouterr().err
