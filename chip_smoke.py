@@ -16,8 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, in
    f64 and f32, at a ragged size and at the main path's shape (B6 also
    with a batch of 3 and with zero padding; B4 and B5 also with a batch
-   of 3 and at width 0; B1-B3 also batched), timed with CUDA events
-   beside the plain version and a yardstick;
+   of 3 and at width 0, each with and without row lengths, B4 also with
+   a strided v and v[0] = inf, B5 also with half its lanes masked off;
+   B1-B3 also batched), timed with CUDA events beside the plain version
+   and a yardstick; B4's and B5's registers and resident blocks an SM;
 4. the dense path: the CLI default (``gen-ip002``), then the full-width
    dense instance solved twice, stepped (B1/B2 every step) and with the
    check-window megakernel (B3 every window).  Both must reach
@@ -775,10 +777,54 @@ def _ell_window(forms, dt, g):
                 sigma=torch.full((B,), 0.9, dtype=dt, device="cuda"))
 
 
+def _csr(data, cols, n):
+    """The stored entries of a (B, rows, W) ELL form as one block-diagonal
+    CSR matrix (B * rows, B * n): cuSPARSE's yardstick."""
+    import torch
+
+    Bl, rows, W = data.shape
+    csr = torch.sparse_coo_tensor(
+        torch.stack([
+            torch.arange(Bl * rows, device="cuda").repeat_interleave(W),
+            (cols.long() + (torch.arange(Bl, device="cuda") * n)
+             .view(-1, 1, 1)).reshape(-1)]),
+        data.reshape(-1), (Bl * rows, Bl * n),
+        check_invariants=False).coalesce()
+    keep = csr.values() != 0
+    return torch.sparse_coo_tensor(
+        csr.indices()[:, keep], csr.values()[keep], csr.shape,
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def kernel_attrs_lines():
+    """B4's and B5's registers, local bytes and resident blocks an SM, in
+    f64 and f32, 16-byte-load and scalar forms."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name, key in (("ell_matvec", "ell_matvec"),
+                      ("pdhg_fused_ell", "fused_ell_steps")):
+        for dt in (torch.float64, torch.float32):
+            for vec in (True, False):
+                a = _build.kernel_attrs(name, dt, vec)
+                form = "vector" if vec else "scalar"
+                dname = str(dt).split(".")[1]
+                print(f"kernel attrs {key} {dname} {form}: "
+                      f"registers={a['registers']} "
+                      f"local_bytes={a['local_bytes']} "
+                      f"blocks_per_sm={a['blocks_per_sm']}", flush=True)
+                out.setdefault(key, {})[f"{dname} {form}"] = a
+    return out
+
+
 def phase_ell_kernels(bucket, steps: int):
-    """B4 and B5 against their plain versions (ragged, a batch of 3,
-    width 0 and the main bucket), and B1-B3 batched; times at the main
-    bucket go into the JSON line."""
+    """B4 and B5 against their plain versions (ragged, a batch of 3 also
+    with a strided v, width 0, the NaN contract with v[0] = inf and the
+    main bucket; each with and without row lengths, B5 also with half its
+    lanes masked off), and B1-B3 batched; times at the main bucket go
+    into the JSON line."""
     import numpy as np
     import torch
 
@@ -800,86 +846,148 @@ def phase_ell_kernels(bucket, steps: int):
     for dt in (torch.float64, torch.float32):
         dname = str(dt).split(".")[1]
         size = torch.finfo(dt).bits // 8
+        tol = TOLS[("ell_matvec", dname)]
         for tag, forms in cases:
             w = _ell_window(forms, dt, g)
             if tag == "ragged":         # no batch axis
                 w = {k: v[0] for k, v in w.items()}
             df, cf, da, ca = (w[k] for k in ("data_f", "cols_f", "data_a",
                                              "cols_a"))
+            rl = dict(row_len_f=sm.ell_row_len(df, cf),
+                      row_len_a=sm.ell_row_len(da, ca))
             Bl = df.shape[0] if df.dim() == 3 else 1
             (m, W), (n, Wa) = df.shape[-2:], da.shape[-2:]
-            # B4, forward and adjoint
-            outs = [sm.ell_matvec(df, cf, w["x"]),
-                    sm.ell_matvec(da, ca, w["y"])]
-            refs = [sm.ell_matvec_plain(df, cf, w["x"]),
-                    sm.ell_matvec_plain(da, ca, w["y"])]
-            torch.cuda.synchronize()
-            if W == 0:
-                err, rel = max(float(o.abs().max()) for o in outs), 0.0
-                check(err == 0.0, f"ell_matvec {dname} width 0: {err}")
-            else:
-                err, rel = max_err(outs, refs)
-            row = dict(dtype=dname, shape=[Bl, m, W], tag=tag,
-                       max_abs_err=err, rel_err=rel)
-            rows["ell_matvec"].append(row)
-            check(rel <= TOLS[("ell_matvec", dname)],
-                  f"ell_matvec {dname} {tag}: rel err {rel:.3e}")
+            # B4, forward and adjoint, every slot and with row lengths
+            for with_len in (False, True):
+                rf, ra = ((rl["row_len_f"], rl["row_len_a"]) if with_len
+                          else (None, None))
+                outs = [sm.ell_matvec(df, cf, w["x"], rf),
+                        sm.ell_matvec(da, ca, w["y"], ra)]
+                refs = [sm.ell_matvec_plain(df, cf, w["x"], rf),
+                        sm.ell_matvec_plain(da, ca, w["y"], ra)]
+                if tag == "batch3":     # a strided v: a slice of a longer one
+                    wide = torch.cat([w["x"], w["x"][:, :5]], dim=1)
+                    outs.append(sm.ell_matvec(df, cf, wide[:, 5:], rf))
+                    refs.append(sm.ell_matvec_plain(
+                        df, cf, wide[:, 5:].contiguous(), rf))
+                torch.cuda.synchronize()
+                if W == 0:
+                    err, rel = max(float(o.abs().max()) for o in outs), 0.0
+                    check(err == 0.0, f"ell_matvec {dname} width 0: {err}")
+                else:
+                    err, rel = max_err(outs, refs)
+                row = dict(dtype=dname, shape=[Bl, m, W], tag=tag,
+                           row_len=with_len, max_abs_err=err, rel_err=rel)
+                rows["ell_matvec"].append(row)
+                check(rel <= tol, f"ell_matvec {dname} {tag} row_len="
+                                  f"{with_len}: rel err {rel:.3e}")
+                if tag == "ragged":
+                    # the NaN contract: v[0] = inf turns the padded rows,
+                    # and only them, to NaN, as in the plain version
+                    v = w["x"].clone()
+                    v[0] = float("inf")
+                    out = sm.ell_matvec(df, cf, v, rf)
+                    ref = sm.ell_matvec_plain(df, cf, v, rf)
+                    nan, fin = torch.isnan(ref), torch.isfinite(ref)
+                    err, rel = max_err([out[fin]], [ref[fin]])
+                    rows["ell_matvec"].append(dict(
+                        dtype=dname, shape=[Bl, m, W], tag="nan",
+                        row_len=with_len, max_abs_err=err, rel_err=rel))
+                    # rows with an entry in column 0 and no padding are
+                    # +-inf on both sides
+                    check(torch.equal(torch.isnan(out), nan)
+                          and torch.equal(out[~fin & ~nan],
+                                          ref[~fin & ~nan])
+                          and bool(nan.any()) and rel <= tol,
+                          f"ell_matvec {dname} NaN contract row_len="
+                          f"{with_len}: rel err {rel:.3e}")
             if tag == "main":
-                nnz = int((df != 0).sum())
-                csr = torch.sparse_coo_tensor(
-                    torch.stack([
-                        (torch.arange(Bl * m, device="cuda")
-                         .repeat_interleave(W)),
-                        (cf.long() + (torch.arange(Bl, device="cuda") * n)
-                         .view(-1, 1, 1)).reshape(-1)]),
-                    df.reshape(-1), (Bl * m, Bl * n),
-                    check_invariants=False).coalesce()
-                keep = csr.values() != 0
-                csr = torch.sparse_coo_tensor(
-                    csr.indices()[:, keep], csr.values()[keep], csr.shape,
-                    check_invariants=False).coalesce().to_sparse_csr()
-                xv = w["x"].reshape(-1, 1)
-                lib = csr @ xv
-                check(max_err([lib.view(Bl, m)], [refs[0]])[1]
-                      <= TOLS[("ell_matvec", dname)],
-                      f"ell_matvec {dname}: cuSPARSE disagrees")
-                # reads data, cols, v once; writes w
+                row = rows["ell_matvec"][-1]        # with row lengths
+                nnz_f, nnz_a = int((df != 0).sum()), int((da != 0).sum())
+                csr_f, csr_a = _csr(df, cf, n), _csr(da, ca, m)
+                xv, yv = w["x"].reshape(-1, 1), w["y"].reshape(-1, 1)
+                for csr, vec, ref, what in (
+                        (csr_f, xv, refs[0], "forward"),
+                        (csr_a, yv, refs[1], "adjoint")):
+                    lib = (csr @ vec).view(ref.shape)
+                    check(max_err([lib], [ref])[1] <= tol,
+                          f"ell_matvec {dname}: cuSPARSE {what} disagrees")
+                rf, ra = rl["row_len_f"], rl["row_len_a"]
+                # the same entries with every column at its own row's
+                # index mod n: the gathers of v then hit in cache
+                local = (torch.arange(m, device="cuda", dtype=torch.int32)
+                         % n).view(1, m, 1).expand_as(cf).contiguous()
+                # with row lengths: reads the stored entries, the row
+                # lengths and v once, writes w
                 row.update(
-                    ms=cuda_ms(lambda: sm.ell_matvec(df, cf, w["x"]),
+                    local_gather_ms=cuda_ms(lambda: sm.ell_matvec(
+                        df, local, w["x"], rf), reps=20, inner=10),
+                    ms=cuda_ms(lambda: sm.ell_matvec(df, cf, w["x"], rf),
                                reps=20, inner=10),
+                    all_slots_ms=cuda_ms(lambda: sm.ell_matvec(
+                        df, cf, w["x"]), reps=20, inner=10),
                     adjoint_ms=cuda_ms(lambda: sm.ell_matvec(
+                        da, ca, w["y"], ra), reps=20, inner=10),
+                    adjoint_all_slots_ms=cuda_ms(lambda: sm.ell_matvec(
                         da, ca, w["y"]), reps=20, inner=10),
                     plain_ms=cuda_ms(lambda: sm.ell_matvec_plain(
-                        df, cf, w["x"]), reps=5, inner=2),
-                    library_ms=cuda_ms(lambda: csr @ xv, reps=20, inner=10),
-                    nnz=nnz,
-                    nnz_bound_ms=bound_ms(nnz * (size + 4), 2 * nnz,
+                        df, cf, w["x"], rf), reps=5, inner=2),
+                    library_ms=cuda_ms(lambda: csr_f @ xv, reps=20,
+                                       inner=10),
+                    adjoint_library_ms=cuda_ms(lambda: csr_a @ yv, reps=20,
+                                               inner=10),
+                    nnz=nnz_f, adjoint_nnz=nnz_a,
+                    nnz_bound_ms=bound_ms(nnz_f * (size + 4), 2 * nnz_f,
                                           dname)[0],
-                    bound=bound_ms(Bl * m * W * (size + 4)
-                                   + Bl * (n + m) * size,
-                                   2 * Bl * m * W, dname))
-            # B5, with and without the theta schedule
+                    adjoint_nnz_bound_ms=bound_ms(nnz_a * (size + 4),
+                                                  2 * nnz_a, dname)[0],
+                    all_slots_bound_ms=bound_ms(
+                        Bl * m * W * (size + 4) + Bl * (n + m) * size,
+                        2 * Bl * m * W, dname)[0],
+                    bound=bound_ms(nnz_f * (size + 4) + Bl * m * 4
+                                   + Bl * (n + m) * size, 2 * nnz_f, dname))
+                del csr_f, csr_a, local
+            # B5, with and without the theta schedule: every slot and
+            # every lane as before, then with row lengths, all lanes live
+            # and half of them masked off
+            half = torch.arange(Bl, device="cuda") % 2 == 0
             for gamma in (0.0, 0.05):
-                outs = mk.fused_ell_steps(**w, n_steps=steps, gamma=gamma)
-                refs = mk.fused_ell_steps_plain(**w, n_steps=steps,
-                                                gamma=gamma)
-                torch.cuda.synchronize()
-                err, rel = max_err(outs, refs)
-                rows["fused_ell_steps"].append(dict(
-                    dtype=dname, shape=[Bl, m, n, W, Wa], tag=tag,
-                    steps=steps, gamma=gamma, max_abs_err=err, rel_err=rel))
-                check(rel <= TOLS[("fused_ell_steps", dname)],
-                      f"fused_ell_steps {dname} {tag} gamma={gamma}: "
-                      f"rel err {rel:.3e}")
+                for live, kw in (("all", {}), ("all", rl),
+                                 ("half", dict(rl, active=half))):
+                    if live == "half" and Bl == 1:
+                        continue
+                    outs = mk.fused_ell_steps(**w, **kw, n_steps=steps,
+                                              gamma=gamma)
+                    refs = mk.fused_ell_steps_plain(**w, **kw,
+                                                    n_steps=steps,
+                                                    gamma=gamma)
+                    torch.cuda.synchronize()
+                    err, rel = max_err(outs, refs)
+                    rows["fused_ell_steps"].append(dict(
+                        dtype=dname, shape=[Bl, m, n, W, Wa], tag=tag,
+                        steps=steps, gamma=gamma, row_len=bool(kw),
+                        lanes=live, max_abs_err=err, rel_err=rel))
+                    check(rel <= TOLS[("fused_ell_steps", dname)],
+                          f"fused_ell_steps {dname} {tag} gamma={gamma} "
+                          f"row_len={bool(kw)} lanes={live}: rel err "
+                          f"{rel:.3e}")
+                    if live == "half":
+                        check(all(torch.equal(o[~half], w[k][~half])
+                                  for o, k in zip(outs[:4], ("x", "x_prev",
+                                                             "x_bar", "y")))
+                              and not outs[6][~half].any(),
+                              f"fused_ell_steps {dname} {tag}: a masked "
+                              f"lane moved")
             if tag == "main":
-                op = engine.sparse_ell_operator(df, cf, da, ca)
+                op = engine.sparse_ell_operator(df, cf, da, ca, **rl)
                 state0 = engine.PDHGState(w["x"], w["x_prev"], w["x_bar"],
                                           w["y"], w["tau"], w["sigma"])
                 vec_args = (w["b"], w["c"], w["lb"], w["ub"], w["T"],
                             w["Sigma"])
 
                 def stepped():
-                    # yardstick: the stepped ELL window, B4 + B1 + B4 + B2
+                    # yardstick: the stepped ELL window, B4 + B1 + B4 + B2,
+                    # B4 with row lengths as the solve calls it
                     s, xs, ys = state0, 0.0, 0.0
                     for _ in range(steps):
                         s = engine.pdhg_step(op, engine.CUDA_UPDATES,
@@ -887,24 +995,35 @@ def phase_ell_kernels(bucket, steps: int):
                         xs, ys = xs + s.x, ys + s.y
                     return s, xs, ys
 
-                ell_bytes = Bl * (m * W + n * Wa) * (size + 4)
-                # reads both ELL forms, b, Sigma, y, c, lb, ub, T, x,
-                # x_bar, tau, sigma once; writes x, x_prev, x_bar, the x
-                # sum, y, the y sum, tau, sigma
+                nnz = int((df != 0).sum() + (da != 0).sum())
+                entry_bytes = nnz * (size + 4) + Bl * (m + n) * 4
+                # reads both forms' stored entries and row lengths, b,
+                # Sigma, y, c, lb, ub, T, x, x_bar, tau, sigma once;
+                # writes x, x_prev, x_bar, the x sum, y, the y sum, tau,
+                # sigma
                 vecs = Bl * ((3 * m + 6 * n + 2) + (4 * n + 2 * m + 2))
-                rows["fused_ell_steps"][-1].update(
+                live = torch.ones(Bl, dtype=torch.bool, device="cuda")
+                rows["fused_ell_steps"][-2].update(
                     ms=cuda_ms(lambda: mk.fused_ell_steps(
+                        **w, **rl, active=live, n_steps=steps, gamma=0.05),
+                        reps=10),
+                    all_slots_ms=cuda_ms(lambda: mk.fused_ell_steps(
                         **w, n_steps=steps, gamma=0.05), reps=10),
+                    half_masked_ms=cuda_ms(lambda: mk.fused_ell_steps(
+                        **w, **rl, active=half, n_steps=steps, gamma=0.05),
+                        reps=10),
                     plain_ms=cuda_ms(lambda: mk.fused_ell_steps_plain(
-                        **w, n_steps=steps, gamma=0.05), reps=3, warmup=1),
+                        **w, **rl, n_steps=steps, gamma=0.05), reps=3,
+                        warmup=1),
                     library_ms=None,
                     yardstick_ms=cuda_ms(stepped, reps=5, warmup=1),
-                    reread_floor_ms=1e3 * steps * ell_bytes
+                    reread_floor_ms=1e3 * steps * entry_bytes
                     / HBM_BYTES_PER_S,
+                    all_slots_reread_floor_ms=1e3 * steps * Bl
+                    * (m * W + n * Wa) * (size + 4) / HBM_BYTES_PER_S,
                     bound=bound_ms(
-                        ell_bytes + vecs * size,
-                        steps * Bl * (2 * m * W + 2 * n * Wa + 4 * m
-                                      + 9 * n), dname))
+                        entry_bytes + vecs * size,
+                        steps * (4 * nnz + Bl * (4 * m + 9 * n)), dname))
             del w
         # B1-B3 with a batch axis against their plain versions
         lanes = torch.arange(1, B + 1, dtype=dt, device="cuda")
@@ -953,20 +1072,9 @@ def phase_ell_kernels(bucket, steps: int):
               f"batched fused_dense_steps {dname}: rel err {rel:.3e}")
     for name in ("ell_matvec", "fused_ell_steps"):
         for r in rows[name]:
-            print(f"kernel {name} {r['dtype']} {r['tag']} shape={r['shape']}"
-                  + (f" gamma={r['gamma']}" if "gamma" in r else "")
-                  + f" max_abs_err={r['max_abs_err']:.3e}"
-                  f" rel_err={r['rel_err']:.3e}"
-                  + (f" ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f}"
-                     f" bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
-                     if "ms" in r else "")
-                  + (f" adjoint_ms={r['adjoint_ms']:.6f}"
-                     f" library_ms={r['library_ms']:.6f}"
-                     f" nnz={r['nnz']} nnz_bound_ms={r['nnz_bound_ms']:.6f}"
-                     if "adjoint_ms" in r else "")
-                  + (f" yardstick_ms={r['yardstick_ms']:.6f}"
-                     f" reread_floor_ms={r['reread_floor_ms']:.6f}"
-                     if "yardstick_ms" in r else ""), flush=True)
+            print(f"kernel {name} " + " ".join(
+                f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in r.items()), flush=True)
     for r in rows["batched"]:
         print(f"kernel batched {r['kernel']} {r['dtype']} shape={r['shape']}"
               f" max_abs_err={r['max_abs_err']:.3e}"
@@ -1161,8 +1269,10 @@ def main() -> int:
     built = _build.build(verbose=True)
     print(f"build: {built.seconds:.1f}s -> {built.path}", flush=True)
     for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             print(f"  ptxas {line.strip()}", flush=True)
+    attrs = kernel_attrs_lines()
 
     if args.probe:
         for scale in (int(v) for v in args.probe.split(",")):
@@ -1204,7 +1314,11 @@ def main() -> int:
 
     line = []
     extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",
-              "nnz_bound_ms", "reread_floor_ms")
+              "nnz_bound_ms", "reread_floor_ms", "all_slots_ms",
+              "adjoint_all_slots_ms", "adjoint_library_ms",
+              "adjoint_nnz_bound_ms", "all_slots_bound_ms", "nnz",
+              "adjoint_nnz", "half_masked_ms", "all_slots_reread_floor_ms",
+              "local_gather_ms")
     for name in KERNEL_NAMES:
         main_row = next(r for r in rows[name]
                         if r["dtype"] == "float64" and "ms" in r)
@@ -1226,6 +1340,8 @@ def main() -> int:
         for extra in extras:
             if extra in main_row:
                 entry[extra] = main_row[extra]
+        if name in attrs:
+            entry["attrs"] = attrs[name]
         f32 = next(r for r in rows[name]
                    if r["dtype"] == "float32" and "ms" in r)
         entry["f32"] = {"ms": f32["ms"], "plain_ms": f32["plain_ms"],

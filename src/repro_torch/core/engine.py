@@ -74,9 +74,11 @@ class PDHGState(NamedTuple):
 
 class Operator(NamedTuple):
     """The two MVMs of one iteration: ``fwd(v) ~ K v`` (dual step) and
-    ``adj(v) ~ K^T v`` (primal step).  ``fuse(state, n_steps) ->
+    ``adj(v) ~ K^T v`` (primal step).  ``fuse(state, n_steps, active) ->
     (state', x_sum, y_sum)`` is the optional megakernel hook, mounted
-    only on noiseless backends."""
+    only on noiseless backends; ``active`` is the loop's per-lane mask on
+    the device, and a hook may leave the lanes it marks stopped as they
+    came in (the loop discards their results)."""
 
     fwd: Callable
     adj: Callable
@@ -166,19 +168,28 @@ def sparse_operator(K_sp, sigma_read: float = 0.0,
                     _noisy(adj, sigma_read, generator), "sparse")
 
 
+def _row_lens(row_len, data, cols):
+    return sparse_mvm.ell_row_len(data, cols) if row_len is None \
+        else row_len
+
+
 def sparse_ell_operator(data_f, cols_f, data_a, cols_a,
                         sigma_read: float = 0.0,
-                        generator: Optional[torch.Generator] = None
-                        ) -> Operator:
+                        generator: Optional[torch.Generator] = None,
+                        row_len_f=None, row_len_a=None) -> Operator:
     """Row-blocked ELL backend on B4 (``kernels.sparse_mvm.ell_matvec``):
     the forward MVM contracts the ELL form of K (``data_f``/``cols_f``,
     (m, Wf)), the adjoint a separately stored ELL of K^T (``data_a``/
     ``cols_a``, (n, Wa)), each optionally batched; both are gathers and
-    row reductions.  The read-noise hook matches ``dense_operator``."""
+    row reductions that stop at each row's last stored slot (row lengths
+    from ``sparse_mvm.ell_row_len``, computed here once unless given).
+    The read-noise hook matches ``dense_operator``."""
+    row_len_f = _row_lens(row_len_f, data_f, cols_f)
+    row_len_a = _row_lens(row_len_a, data_a, cols_a)
     return Operator(
-        _noisy(lambda v: sparse_mvm.ell_matvec(data_f, cols_f, v),
+        _noisy(lambda v: sparse_mvm.ell_matvec(data_f, cols_f, v, row_len_f),
                sigma_read, generator),
-        _noisy(lambda v: sparse_mvm.ell_matvec(data_a, cols_a, v),
+        _noisy(lambda v: sparse_mvm.ell_matvec(data_a, cols_a, v, row_len_a),
                sigma_read, generator), "sparse_ell")
 
 
@@ -241,9 +252,10 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
                      gamma) -> Callable:
     """``Operator.fuse`` hook for the dense backend: one
     ``kernels.pdhg_megakernel`` launch per check window.  Noiseless
-    only; ``K_adj`` must be a contiguous (n, m) tensor."""
+    only; ``K_adj`` must be a contiguous (n, m) tensor.  B3 steps every
+    lane: it ignores ``active``."""
 
-    def fuse(state: PDHGState, n_steps: int):
+    def fuse(state: PDHGState, n_steps: int, active=None):
         (x, x_prev, x_bar, y, tau, sigma, xs, ys) = \
             pdhg_megakernel.fused_dense_steps(
                 K_fwd, K_adj, b, c, lb, ub, T, Sigma,
@@ -257,18 +269,22 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
 
 
 def make_fused_ell(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
-                   gamma) -> Callable:
+                   gamma, row_len_f=None, row_len_a=None) -> Callable:
     """``Operator.fuse`` hook for the ELL backend: one B5 launch per check
-    window (same contract as ``make_fused_dense``, operands in ELL
-    form)."""
+    window (same contract as ``make_fused_dense``, operands in ELL form
+    with their row lengths, computed here once unless given).  Only the
+    lanes ``active`` marks live are stepped."""
+    row_len_f = _row_lens(row_len_f, data_f, cols_f)
+    row_len_a = _row_lens(row_len_a, data_a, cols_a)
 
-    def fuse(state: PDHGState, n_steps: int):
+    def fuse(state: PDHGState, n_steps: int, active=None):
         (x, x_prev, x_bar, y, tau, sigma, xs, ys) = \
             pdhg_megakernel.fused_ell_steps(
                 data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
                 state.x, state.x_prev, state.x_bar, state.y,
                 state.tau, state.sigma,
-                n_steps=int(n_steps), gamma=float(gamma))
+                n_steps=int(n_steps), gamma=float(gamma),
+                row_len_f=row_len_f, row_len_a=row_len_a, active=active)
         return (PDHGState(x=x, x_prev=x_prev, x_bar=x_bar, y=y,
                           tau=tau, sigma=sigma), xs, ys)
 
@@ -437,8 +453,10 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     lane takes back its state (a per-lane ``torch.where`` on the active
     mask), so each lane reports its own iterations and merit, and
     finished lanes are still computed (what the crossbar ledger
-    charges).  Exits only at check boundaries, so ``iterations`` can
-    overshoot ``max_iters`` up to the next multiple of ``check_every``.
+    charges), except by a fuse hook that skips the lanes ``active``
+    marks stopped (B5), which changes no result.  Exits only at check
+    boundaries, so ``iterations`` can overshoot ``max_iters`` up to the
+    next multiple of ``check_every``.
 
     ``restart=False`` drops the averaged-iterate block and its two
     MVMs.  ``step_rule="adaptive"`` rescales (tau0, sigma0) from the
@@ -500,8 +518,8 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
         merit, xs, ys, cnt, m_restart = rest
         s = state
         if op.fuse is not None:
-            # megakernel window: one fused launch
-            s, dxs, dys = op.fuse(s, check_every)
+            # megakernel window: one fused launch over the active lanes
+            s, dxs, dys = op.fuse(s, check_every, active)
             xs, ys = xs + dxs, ys + dys
         else:
             for _ in range(check_every):

@@ -42,13 +42,19 @@ _SIGNATURES = {
     # operands, state, step sizes in/out, sums, schedule scratch;
     # m, n, batch, steps; gamma
     "pdhg_fused_dense": [_P] * 19 + [_INT] * 4 + [ctypes.c_double, _P],
-    # as above with the two ELL forms first; m, n, Wf, Wa, batch, steps
-    "pdhg_fused_ell": [_P] * 21 + [_INT] * 6 + [ctypes.c_double, _P],
+    # as above with the two ELL forms (values, columns, row lengths)
+    # first and the live-lane mask and list last; m, n, Wf, Wa, batch,
+    # steps
+    "pdhg_fused_ell": [_P] * 25 + [_INT] * 6 + [ctypes.c_double, _P],
     # G+, G-, v, gain, out; R, C; batch; batch strides of G, v, gain/out
     "crossbar_mvm": [_P] * 5 + [_LL, _LL, _INT] + [_LL] * 3 + [_P],
-    # data, cols, v, out; m, W, batch; batch strides of data/cols, v, out
-    "ell_matvec": [_P] * 4 + [_INT] * 3 + [_LL] * 3 + [_P],
+    # data, cols, row lengths, v, out; m, W, batch; batch strides of
+    # data/cols, v, out
+    "ell_matvec": [_P] * 5 + [_INT] * 3 + [_LL] * 3 + [_P],
 }
+# kernels whose registers, local (spill) bytes and resident blocks an SM
+# ``kernel_attrs`` reads: (vectorised form, int[3] out), no stream
+_ATTRS = ("ell_matvec_attrs", "pdhg_fused_ell_attrs")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 builds = 0      # nvcc runs of this process (a cache of built libraries
@@ -159,6 +165,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for name in _ATTRS:
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = [_INT, _P]
+            fn.restype = ctypes.c_int
     lib.pdhg_error_string.argtypes = [ctypes.c_int]
     lib.pdhg_error_string.restype = ctypes.c_char_p
     return lib
@@ -185,6 +196,22 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
     fn = getattr(library(), f"{name}_{_suffix(dtype)}")
     stream = torch.cuda.current_stream().cuda_stream
     check(fn(*args, stream), name)
+
+
+def kernel_attrs(name: str, dtype: torch.dtype, vectorised: bool) -> dict:
+    """Registers a thread, local (spill) bytes a thread and resident
+    blocks an SM of kernel ``name`` (B4's ``ell_matvec`` or B5's
+    ``pdhg_fused_ell``), in its 16-byte-load form or its scalar one."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(library(), f"{name}_attrs_{_suffix(dtype)}")
+    check(fn(int(vectorised), ctypes.cast(out, _P)), f"{name}_attrs")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
+def pointer(t) -> int | None:
+    """A tensor's device address, or None (NULL) for an omitted operand."""
+    return None if t is None else t.data_ptr()
 
 
 def check_cuda_operands(*tensors: torch.Tensor) -> None:

@@ -16,6 +16,8 @@
 
 #pragma once
 
+#include <cstdint>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -89,11 +91,30 @@ __device__ __forceinline__ T warp_row_dot(const T* __restrict__ row,
   return warp_sum(acc);
 }
 
-// Threads that own one ELL row of width W: min(W, 32) rounded up to a
-// power of two, so a warp holds 32 / g whole rows.
+// Slots that one thread of an ELL row group owns per round: a
+// contiguous run of 16 bytes of values, 2 in f64 and 4 in f32, read as
+// one 16-byte load (and one 8- or 16-byte load of columns) when the rows
+// are aligned.  At 32 registers a thread a longer run spills in f64.
+template <typename T>
+__host__ __device__ constexpr int ell_run() {
+  return 16 / (int)sizeof(T);
+}
+
+// Resident blocks an SM that B4 and B5 are compiled for: 8 x 256 threads
+// is the SM's 2048, which caps a thread at 32 registers.  B5's scalar
+// form (ragged widths or unaligned bases, never the stream's buckets)
+// spills a register in f64 at 32, so it takes 6 (40 registers: they are
+// granted in steps of 8).
+constexpr int kEllBlocksPerSM = 8;
+constexpr int kEllScalarFusedBlocksPerSM = 6;
+
+// Threads that own one ELL row of width W: the smallest power of two g
+// (at most 32) with 8 g >= W, so a warp holds 32 / g rows, 4 at W = 64
+// and 8 at W = 32, and a full row takes 4 rounds of runs in f64 and 2 in
+// f32.
 __host__ __device__ inline int ell_group(int W) {
   int g = 1;
-  while (g < W && g < 32) g <<= 1;
+  while (8 * g < W && g < 32) g <<= 1;
   return g;
 }
 
@@ -105,63 +126,136 @@ struct DenseRows {
   const T* __restrict__ M;
   int len;
 
-  // Calls f(r, (M v)_r) on lane 0 of the owning warp, for every row r
-  // this warp owns (warp, warp + n_warps, ...).
-  template <typename F>
-  __device__ __forceinline__ void for_each_row(long long rows,
-                                               long long rows_per_lane,
-                                               const T* v, long long v_len,
-                                               long long warp,
-                                               long long n_warps, F&& f)
-      const {
+  // Calls f(lane, i, (M v)_i) on lane 0 of the owning warp, for every row
+  // q this warp owns (warp, warp + n_warps, ...) of the `rows` rows of the
+  // lanes listed in `lanes` (every lane when it is null); row q is row i
+  // of the whole batch.  Row and vector indices are 32-bit (the launchers
+  // check that every lane's rows and vectors fit); addresses are not.
+  // The prefetch hook of EllRows is not called here.
+  template <typename P, typename F>
+  __device__ __forceinline__ void for_each_row(int rows, int rows_per_lane,
+                                               const int* lanes, const T* v,
+                                               int v_len, int warp,
+                                               int n_warps, P&&,
+                                               F&& f) const {
     const int lane = threadIdx.x & 31;
-    for (long long r = warp; r < rows; r += n_warps) {
-      const T* vl = v + (r / rows_per_lane) * v_len;
-      const T acc = warp_row_dot(M + r * (long long)len, vl, len, lane);
-      if (lane == 0) f(r, acc);
+    for (int q = warp; q < rows; q += n_warps) {
+      const int slot = q / rows_per_lane;
+      const int l = lanes == nullptr ? slot : lanes[slot];
+      const int i = l * rows_per_lane + (q - slot * rows_per_lane);
+      const T acc = warp_row_dot(M + (long long)i * len, v + l * v_len, len,
+                                 lane);
+      if (lane == 0) f(l, i, acc);
     }
   }
 };
 
+// Asks the L2 for the line holding *p; no register waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// One run of values (16 bytes) and of their columns from aligned
+// addresses.
+__device__ __forceinline__ void load_run(const double* d, const int* c,
+                                         double* dv, int* cv) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(d));
+  const int2 b = __ldg(reinterpret_cast<const int2*>(c));
+  dv[0] = a.x; dv[1] = a.y;
+  cv[0] = b.x; cv[1] = b.y;
+}
+__device__ __forceinline__ void load_run(const float* d, const int* c,
+                                         float* dv, int* cv) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(d));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(c));
+  dv[0] = a.x; dv[1] = a.y; dv[2] = a.z; dv[3] = a.w;
+  cv[0] = b.x; cv[1] = b.y; cv[2] = b.z; cv[3] = b.w;
+}
+
 // The rows of an ELL product over the whole batch:
-//   w[r] = sum_k data[r, k] * v_lane[cols[r, k]],  k < W
-// A group of g = ell_group(W) threads owns a row; its lanes stride the
-// row's W slots (coalesced: neighbouring lanes read neighbouring slots,
-// neighbouring groups neighbouring rows) and reduce with shuffles.  Every
-// slot is multiplied, padding included (data 0, col 0), as the reference
-// does, so a non-finite v[0] turns a padded row to NaN on both sides.
-template <typename T>
+//   w[i] = sum_{k < len_i} data[i, k] * v_lane[cols[i, k]]
+//          (+ 0 * v_lane[0] when len_i < W)
+// where len_i = row_len[i] (clamped to [0, W]), or W for every row when
+// row_len is null.  The slots from len_i on are padding (data 0, col 0):
+// they are not read, and the one 0 * v_lane[0] term stands for all of
+// them, so a non-finite v[0] still turns a padded row to NaN, as the
+// reference's product over every slot does.
+//
+// A group of g = ell_group(W) threads owns a row.  In round r, thread t
+// of the group owns the run of R = ell_run<T>() slots from r * g * R +
+// t * R: with kVec (W % R == 0 and 16-byte-aligned bases) it issues the
+// run's vector loads of data and cols, then its gathers of v, then its
+// FMAs in slot order; without, it takes the same slots one by one.  The
+// group reduces with log2(g) shuffles.  So the sum order depends on W
+// and T alone, and B4 and B5, which both call this, sum every row in the
+// same order.  The rounds run to the longest row of the warp, a bound
+// uniform across the warp: every lane reaches the shuffles.
+template <typename T, bool kVec>
 struct EllRows {
   const T* __restrict__ data;
   const int* __restrict__ cols;
+  const int* __restrict__ row_len;    // null: every row is W long
   int W;
 
-  template <typename F>
-  __device__ __forceinline__ void for_each_row(long long rows,
-                                               long long rows_per_lane,
-                                               const T* v, long long v_len,
-                                               long long warp,
-                                               long long n_warps, F&& f)
-      const {
+  // As DenseRows::for_each_row; f(lane, i, w_i) is called on the first
+  // thread of the row's group, and pre(i) on the same thread as soon as
+  // the row is known, before its loads: B5 asks the L2 there for the
+  // element operands f reads, so they arrive while the row is summed.
+  template <typename P, typename F>
+  __device__ __forceinline__ void for_each_row(int rows, int rows_per_lane,
+                                               const int* lanes, const T* v,
+                                               int v_len, int warp,
+                                               int n_warps, P&& pre,
+                                               F&& f) const {
     const int g = ell_group(W);
     const int lane = threadIdx.x & 31;
-    const int lane_g = lane & (g - 1);
+    const int t = lane & (g - 1);
     const int per_warp = 32 / g;
-    // the loop bound is uniform across the warp: every lane reaches the
-    // shuffles of group_sum, valid row or not
-    for (long long base = warp * per_warp; base < rows;
-         base += n_warps * per_warp) {
-      const long long r = base + lane / g;
-      const bool valid = r < rows;
-      T acc = T(0);
+    constexpr int R = ell_run<T>();
+    const int round = g * R;
+    for (int base = warp * per_warp; base < rows; base += n_warps * per_warp) {
+      const int q = base + lane / g;
+      const bool valid = q < rows;
+      int l = 0, i = 0, len = 0;
       if (valid) {
-        const T* vl = v + (r / rows_per_lane) * v_len;
-        const T* d = data + r * (long long)W;
-        const int* c = cols + r * (long long)W;
-        for (int k = lane_g; k < W; k += g) acc += d[k] * vl[c[k]];
+        const int slot = q / rows_per_lane;
+        l = lanes == nullptr ? slot : lanes[slot];
+        i = l * rows_per_lane + (q - slot * rows_per_lane);
+        len = row_len == nullptr ? W : min(max(__ldg(row_len + i), 0), W);
+        if (t == 0) pre(i);
+      }
+      const int longest = __reduce_max_sync(0xffffffffu, len);
+      const T* d = data + (long long)i * W;
+      const int* c = cols + (long long)i * W;
+      const T* vl = v + l * v_len;
+      T acc = T(0);
+      for (int s = 0; s < longest; s += round) {
+        const int r0 = s + t * R;
+        if (kVec) {
+          T dv[R] = {};
+          int cv[R] = {};
+          if (r0 < len) load_run(d + r0, c + r0, dv, cv);
+          T xv[R];
+#pragma unroll
+          for (int k = 0; k < R; ++k)
+            xv[k] = r0 + k < len ? vl[cv[k]] : T(0);
+#pragma unroll
+          for (int k = 0; k < R; ++k)
+            if (r0 + k < len) acc = fma(dv[k], xv[k], acc);
+        } else {
+          // unaligned or ragged rows: the same slots in the same order,
+          // one at a time
+#pragma unroll 1
+          for (int k = 0; k < R; ++k)
+            if (r0 + k < len)
+              acc = fma(__ldg(d + r0 + k), vl[__ldg(c + r0 + k)], acc);
+        }
       }
       acc = group_sum(acc, g);
-      if (valid && lane_g == 0) f(r, acc);
+      if (valid && t == 0) {
+        if (len < W) acc += T(0) * vl[0];
+        f(l, i, acc);
+      }
     }
   }
 };
@@ -170,19 +264,20 @@ struct EllRows {
 // tau_s, sigma_s and theta_s at sched[(0|1|2) * n_steps * B + s * B + lane],
 // and the values after the window to tau_out/sigma_out.  The schedule
 // depends on no vector, so one thread per lane computes it up front, in
-// the order the stepped loop applies it.
+// the order the stepped loop applies it.  A lane that `active` (B bytes,
+// null: every lane) marks stopped keeps its tau and sigma.
 template <typename T>
-__device__ __forceinline__ void step_schedule(const T* __restrict__ tau_in,
-                                              const T* __restrict__ sigma_in,
-                                              T* sched, T* tau_out,
-                                              T* sigma_out, int B,
-                                              int n_steps, T gamma) {
+__device__ __forceinline__ void step_schedule(
+    const T* __restrict__ tau_in, const T* __restrict__ sigma_in,
+    const unsigned char* __restrict__ active, T* sched, T* tau_out,
+    T* sigma_out, int B, int n_steps, T gamma) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
   const long long plane = (long long)n_steps * B;
   T tau = tau_in[t];
   T sigma = sigma_in[t];
-  for (int s = 0; s < n_steps; ++s) {
+  const bool live = active == nullptr || active[t];
+  for (int s = 0; s < n_steps && live; ++s) {
     const T theta = theta_of(tau, gamma);
     sched[s * (long long)B + t] = tau;
     sched[plane + s * (long long)B + t] = sigma;
@@ -194,17 +289,33 @@ __device__ __forceinline__ void step_schedule(const T* __restrict__ tau_in,
   sigma_out[t] = sigma;
 }
 
+// lanes[0..n) = the lanes that `active` marks live, in order, and
+// lanes[B] = n; one thread.
+__device__ __forceinline__ void list_live_lanes(
+    const unsigned char* __restrict__ active, int* lanes, int B) {
+  int n = 0;
+  for (int l = 0; l < B; ++l)
+    if (active == nullptr || active[l]) lanes[n++] = l;
+  lanes[B] = n;
+}
+
 // The check window of the megakernels (B3, B5): n_steps full PDHG steps
-// over every lane, in one cooperative launch.
-//   phase A: one row owner per row of K (all lanes) computes (K x_bar)_i
-//            and applies dual_elem; y_i is added into the y sum;
+// over the live lanes, in one cooperative launch.
+//   prologue: the step-size schedule, and with a `lanes` scratch of B + 1
+//            ints the list of live lanes (null: every lane, no list);
+//   grid.sync();
+//   phase A: one row owner per row of K (live lanes) computes
+//            (K x_bar)_i and applies dual_elem; y_i is added into the y
+//            sum;
 //   grid.sync();
 //   phase B: one row owner per row of K^T computes (K^T y)_j and applies
 //            primal_elem; x_prev_j, x_j, x_bar_j and the x sum are
 //            written by the row's owner;
 //   grid.sync();
-// A row keeps one owner for the whole window, so the sums need no
-// atomics.  The state arrays are updated in place.
+// Only the live lanes' rows are spread over the grid, so every warp's
+// share shrinks with them; a stopped lane's state and sums are left as
+// they came in.  A row keeps one owner for the whole window, so the sums
+// need no atomics.  The state arrays are updated in place.
 template <typename T, typename Fwd, typename Adj>
 __device__ __forceinline__ void fused_steps(
     const Fwd& fwd, const Adj& adj, const T* __restrict__ b,
@@ -212,37 +323,51 @@ __device__ __forceinline__ void fused_steps(
     const T* __restrict__ ub, const T* __restrict__ Tp,
     const T* __restrict__ S, T* x, T* x_prev, T* x_bar, T* y,
     const T* __restrict__ tau_in, const T* __restrict__ sigma_in,
-    T* tau_out, T* sigma_out, T* sched, T* xs, T* ys, int m, int n, int B,
-    int n_steps, T gamma) {
+    T* tau_out, T* sigma_out, T* sched, T* xs, T* ys,
+    const unsigned char* __restrict__ active, int* lanes, int m, int n,
+    int B, int n_steps, T gamma) {
   cg::grid_group grid = cg::this_grid();
-  step_schedule(tau_in, sigma_in, sched, tau_out, sigma_out, B, n_steps,
-                gamma);
+  step_schedule(tau_in, sigma_in, active, sched, tau_out, sigma_out, B,
+                n_steps, gamma);
+  if (lanes != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    list_live_lanes(active, lanes, B);
   grid.sync();
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  const long long rows_m = (long long)B * m;
-  const long long rows_n = (long long)B * n;
-  const long long plane = (long long)n_steps * B;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  const int live = lanes == nullptr ? B : lanes[B];
+  const int plane = n_steps * B;
   for (int s = 0; s < n_steps; ++s) {
-    const T* tau_s = sched + s * (long long)B;
-    const T* sigma_s = tau_s + plane;
-    const T* theta_s = tau_s + 2 * plane;
-    fwd.for_each_row(rows_m, m, x_bar, n, warp, n_warps,
-                     [&](long long i, T kx) {
+    // step s's tau, sigma, theta of lane l: sched[(0|1|2) * plane + at + l]
+    const int at = s * B;
+    fwd.for_each_row(live * m, m, lanes, x_bar, n, warp, n_warps,
+                     [&](int i) {       // f's operands, early
+                       prefetch_l2(y + i);
+                       prefetch_l2(b + i);
+                       prefetch_l2(S + i);
+                       prefetch_l2(ys + i);
+                     },
+                     [&](int l, int i, T kx) {
                        const T yn = dual_elem(y[i], kx, b[i], S[i],
-                                              sigma_s[i / m]);
+                                              sched[plane + at + l]);
                        y[i] = yn;
                        ys[i] += yn;
                      });
     grid.sync();
-    adj.for_each_row(rows_n, n, y, m, warp, n_warps,
-                     [&](long long j, T kty) {
-                       const long long l = j / n;
+    adj.for_each_row(live * n, n, lanes, y, m, warp, n_warps,
+                     [&](int j) {       // f's operands, early
+                       prefetch_l2(x + j);
+                       prefetch_l2(c + j);
+                       prefetch_l2(Tp + j);
+                       prefetch_l2(lb + j);
+                       prefetch_l2(ub + j);
+                       prefetch_l2(xs + j);
+                     },
+                     [&](int l, int j, T kty) {
                        const T xo = x[j];
                        T xn, xb;
                        primal_elem(xo, kty, c[j], Tp[j], lb[j], ub[j],
-                                   tau_s[l], theta_s[l], &xn, &xb);
+                                   sched[at + l], sched[2 * plane + at + l],
+                                   &xn, &xb);
                        x_prev[j] = xo;
                        x[j] = xn;
                        x_bar[j] = xb;
@@ -271,6 +396,39 @@ inline cudaError_t cooperative_grid(const void* kernel, long long want,
   if (want > most) want = most;
   *grid = (int)(want < 1 ? 1 : want);
   return cudaSuccess;
+}
+
+// out[0..3) = registers a thread, local (spill) bytes a thread and
+// resident blocks an SM of `kernel` at kThreads threads a block.
+inline cudaError_t kernel_attrs(const void* kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                       kThreads, 0);
+}
+
+// Vector loads of ELL runs: W a multiple of the run and both bases
+// 16-byte aligned (then every row's runs are aligned).
+template <typename T>
+inline bool ell_vectorised(const void* data, const void* cols, int W) {
+  return W % ell_run<T>() == 0 && (uintptr_t)data % 16 == 0 &&
+         (uintptr_t)cols % 16 == 0;
+}
+
+// Whether the rows of B lanes of an (m, n) operator and its vectors have
+// 32-bit indices, as the row walks above take them, with room for a
+// grid's stride (at most 2^24 threads) past the last row.
+inline bool rows_fit_int(long long B, long long m, long long n) {
+  return B * (m > n ? m : n) + (1LL << 24) < (1LL << 31);
+}
+
+// Whether a window's step-size schedule (3 x n_steps x B) has 32-bit
+// indices.
+inline bool schedule_fits_int(long long B, long long n_steps) {
+  return 3 * n_steps * B < (1LL << 31);
 }
 
 // Blocks that give every row of `rows` an owner when a warp owns

@@ -103,42 +103,62 @@ fused_dense_kernel(const T* __restrict__ K, const T* __restrict__ Ka,
                    int n_steps, T gamma) {
   pdhg::fused_steps(DenseRows<T>{K, n}, DenseRows<T>{Ka, m}, b, c, lb, ub,
                     Tp, S, x, x_prev, x_bar, y, tau_in, sigma_in, tau_out,
-                    sigma_out, sched, xs, ys, m, n, B, n_steps, gamma);
+                    sigma_out, sched, xs, ys, nullptr, nullptr, m, n, B,
+                    n_steps, gamma);
 }
 
 // ---------------------------------------------------------------- B5 ---
 // Replaces repro/kernels/pdhg_megakernel.py::_ell_kernel
 // (fused_ell_steps): as B3, on the forward ELL of K (data_f, cols_f:
 // B x m x Wf) and the separately stored ELL of K^T (data_a, cols_a:
-// B x n x Wa).
+// B x n x Wa), each with its row lengths (B x m, B x n; null: every slot),
+// over the lanes that `active` (B bytes; null: all) marks live.
 //
-// Bound on the H100: bytes.  A step must read both ELL forms (values and
-// int32 columns, 12 bytes a slot in f64) and gather x_bar and y; at the
-// full-width bucket (8 lanes of 16384 x 32768, widths 64 and 64) that is
-// 8 x 37.7 MB = 0.30 GB a step, about 90 us at 3.35 TB/s, since the ELL
-// forms are six times the L2.  The gathers hit the L2 (x_bar and y of
-// all lanes are 6 MB).
+// Bound on the H100: bytes.  A step must read both forms' stored entries
+// (value and int32 column, 12 bytes in f64) and gather x_bar and y.  At
+// the sparse stream's main bucket (16 lanes of 16384 x 32768, widths 64
+// and 32) that is 2 x 4896600 entries, 117.5 MB, plus 3.1 MB of row
+// lengths a step: a 36 us floor at 3.35 TB/s, about 3.6 ms for a
+// 100-step window, since the forms are more than twice the 50 MB L2.
+// Every slot, padding included, would be 403 MB a step (120 us).  As in
+// B4, the gathers (9.8 M random L2 sectors a step) and the element
+// operands (about 50 MB a step, evicted by the streamed entries) hold it
+// well above that floor.
 //
 // Design: B3's cooperative step loop, instantiated on pdhg::EllRows, the
-// same row product B4 runs (a group of min(W, 32) threads a row,
-// shuffle-reduced), so a fused ELL window and a stepped one (B4 + B1 +
-// B4 + B2) reduce every row in the same order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// same row product B4 runs (a group of 4-8 threads a row at W = 32-64,
+// 16-byte runs of slots, rounds up to the warp's longest row), so a
+// fused ELL window and a stepped one (B4 + B1 + B4 + B2) reduce every
+// row in the same order.  It is compiled for 8 resident blocks an SM
+// (2048 threads, 32 registers a thread, no spills; 6 for the scalar
+// form).  Its prologue lists the live lanes so that only their rows are
+// spread over the grid: a stopped or filler lane costs nothing, and
+// every warp's share shrinks with the live rows.  A row's owner asks the
+// L2 for the row's element operands (b, Sigma, y and the y sum; c, T,
+// bounds, x and the x sum) before it sums the row, so they arrive in the
+// shadow of its gathers.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads,
+                                  kVec ? pdhg::kEllBlocksPerSM
+                                       : pdhg::kEllScalarFusedBlocksPerSM)
 fused_ell_kernel(const T* __restrict__ df, const int* __restrict__ cf,
-                 const T* __restrict__ da, const int* __restrict__ ca,
+                 const int* __restrict__ rlf, const T* __restrict__ da,
+                 const int* __restrict__ ca, const int* __restrict__ rla,
                  const T* __restrict__ b, const T* __restrict__ c,
                  const T* __restrict__ lb, const T* __restrict__ ub,
                  const T* __restrict__ Tp, const T* __restrict__ S,
                  T* x, T* x_prev, T* x_bar, T* y,
                  const T* __restrict__ tau_in,
                  const T* __restrict__ sigma_in, T* tau_out, T* sigma_out,
-                 T* xs, T* ys, T* sched, int m, int n, int wf, int wa, int B,
-                 int n_steps, T gamma) {
-  pdhg::fused_steps(EllRows<T>{df, cf, wf}, EllRows<T>{da, ca, wa}, b, c,
-                    lb, ub, Tp, S, x, x_prev, x_bar, y, tau_in, sigma_in,
-                    tau_out, sigma_out, sched, xs, ys, m, n, B, n_steps,
-                    gamma);
+                 T* xs, T* ys, T* sched,
+                 const unsigned char* __restrict__ active, int* lanes,
+                 int m, int n, int wf, int wa, int B, int n_steps,
+                 T gamma) {
+  pdhg::fused_steps(EllRows<T, kVec>{df, cf, rlf, wf},
+                    EllRows<T, kVec>{da, ca, rla, wa}, b, c, lb, ub, Tp, S,
+                    x, x_prev, x_bar, y, tau_in, sigma_in, tau_out,
+                    sigma_out, sched, xs, ys, active, lanes, m, n, B,
+                    n_steps, gamma);
 }
 
 int elementwise_blocks(long long len) {
@@ -197,6 +217,8 @@ int fused_dense(const void* K, const void* Ka, const void* b, const void* c,
                   (void*)&sigma_out, (void*)&xs,     (void*)&ys,
                   (void*)&sched,   (void*)&m,        (void*)&n,
                   (void*)&B,       (void*)&n_steps,  (void*)&gamma};
+  if (!pdhg::rows_fit_int(B, m, n) || !pdhg::schedule_fits_int(B, n_steps))
+    return (int)cudaErrorInvalidValue;
   // one warp per row of the longer phase
   const long long rows = (long long)B * (m > n ? m : n);
   return (int)launch_cooperative((const void*)fused_dense_kernel<T>,
@@ -205,31 +227,48 @@ int fused_dense(const void* K, const void* Ka, const void* b, const void* c,
 }
 
 template <typename T>
-int fused_ell(const void* df, const void* cf, const void* da,
-              const void* ca, const void* b, const void* c, const void* lb,
-              const void* ub, const void* Tp, const void* S, void* x,
-              void* x_prev, void* x_bar, void* y, const void* tau_in,
+int fused_ell(const void* df, const void* cf, const void* rlf,
+              const void* da, const void* ca, const void* rla,
+              const void* b, const void* c, const void* lb, const void* ub,
+              const void* Tp, const void* S, void* x, void* x_prev,
+              void* x_bar, void* y, const void* tau_in,
               const void* sigma_in, void* tau_out, void* sigma_out,
-              void* xs, void* ys, void* sched, int m, int n, int wf, int wa,
-              int B, int n_steps, double gamma_d, void* stream) {
+              void* xs, void* ys, void* sched, const void* active,
+              void* lanes, int m, int n, int wf, int wa, int B, int n_steps,
+              double gamma_d, void* stream) {
   T gamma = (T)gamma_d;
-  void* args[] = {(void*)&df,      (void*)&cf,       (void*)&da,
-                  (void*)&ca,      (void*)&b,        (void*)&c,
-                  (void*)&lb,      (void*)&ub,       (void*)&Tp,
-                  (void*)&S,       (void*)&x,        (void*)&x_prev,
-                  (void*)&x_bar,   (void*)&y,        (void*)&tau_in,
-                  (void*)&sigma_in, (void*)&tau_out, (void*)&sigma_out,
-                  (void*)&xs,      (void*)&ys,       (void*)&sched,
-                  (void*)&m,       (void*)&n,        (void*)&wf,
-                  (void*)&wa,      (void*)&B,        (void*)&n_steps,
-                  (void*)&gamma};
+  void* args[] = {(void*)&df,      (void*)&cf,       (void*)&rlf,
+                  (void*)&da,      (void*)&ca,       (void*)&rla,
+                  (void*)&b,       (void*)&c,        (void*)&lb,
+                  (void*)&ub,      (void*)&Tp,       (void*)&S,
+                  (void*)&x,       (void*)&x_prev,   (void*)&x_bar,
+                  (void*)&y,       (void*)&tau_in,   (void*)&sigma_in,
+                  (void*)&tau_out, (void*)&sigma_out, (void*)&xs,
+                  (void*)&ys,      (void*)&sched,    (void*)&active,
+                  (void*)&lanes,   (void*)&m,        (void*)&n,
+                  (void*)&wf,      (void*)&wa,       (void*)&B,
+                  (void*)&n_steps, (void*)&gamma};
+  if (!pdhg::rows_fit_int(B, m, n) || !pdhg::schedule_fits_int(B, n_steps))
+    return (int)cudaErrorInvalidValue;
+  // the row sums are the same in either form (pdhg::EllRows)
+  const bool vec = pdhg::ell_vectorised<T>(df, cf, wf) &&
+                   pdhg::ell_vectorised<T>(da, ca, wa);
   const long long want_f = pdhg::blocks_for_rows(
       (long long)B * m, 32 / pdhg::ell_group(wf));
   const long long want_a = pdhg::blocks_for_rows(
       (long long)B * n, 32 / pdhg::ell_group(wa));
-  return (int)launch_cooperative((const void*)fused_ell_kernel<T>,
-                                 want_f > want_a ? want_f : want_a, args,
-                                 stream);
+  return (int)launch_cooperative(
+      vec ? (const void*)fused_ell_kernel<T, true>
+          : (const void*)fused_ell_kernel<T, false>,
+      want_f > want_a ? want_f : want_a, args, stream);
+}
+
+template <typename T>
+int fused_ell_attrs(int vec, int* out) {
+  return (int)pdhg::kernel_attrs(
+      vec ? (const void*)fused_ell_kernel<T, true>
+          : (const void*)fused_ell_kernel<T, false>,
+      out);
 }
 
 }  // namespace
@@ -285,15 +324,20 @@ PDHG_FUSED_DENSE(f64, double)
 
 #define PDHG_FUSED_ELL(SUFFIX, T)                                            \
   int pdhg_fused_ell_##SUFFIX(                                               \
-      const void* df, const void* cf, const void* da, const void* ca,        \
-      const void* b, const void* c, const void* lb, const void* ub,          \
-      const void* Tp, const void* S, void* x, void* x_prev, void* x_bar,     \
-      void* y, const void* tau_in, const void* sigma_in, void* tau_out,      \
-      void* sigma_out, void* xs, void* ys, void* sched, int m, int n,        \
+      const void* df, const void* cf, const void* rlf, const void* da,       \
+      const void* ca, const void* rla, const void* b, const void* c,         \
+      const void* lb, const void* ub, const void* Tp, const void* S,         \
+      void* x, void* x_prev, void* x_bar, void* y, const void* tau_in,       \
+      const void* sigma_in, void* tau_out, void* sigma_out, void* xs,        \
+      void* ys, void* sched, const void* active, void* lanes, int m, int n,  \
       int wf, int wa, int B, int n_steps, double gamma, void* stream) {      \
-    return fused_ell<T>(df, cf, da, ca, b, c, lb, ub, Tp, S, x, x_prev,      \
-                        x_bar, y, tau_in, sigma_in, tau_out, sigma_out, xs,  \
-                        ys, sched, m, n, wf, wa, B, n_steps, gamma, stream); \
+    return fused_ell<T>(df, cf, rlf, da, ca, rla, b, c, lb, ub, Tp, S, x,    \
+                        x_prev, x_bar, y, tau_in, sigma_in, tau_out,         \
+                        sigma_out, xs, ys, sched, active, lanes, m, n, wf,   \
+                        wa, B, n_steps, gamma, stream);                      \
+  }                                                                          \
+  int pdhg_fused_ell_attrs_##SUFFIX(int vec, int* out) {                     \
+    return fused_ell_attrs<T>(vec, out);                                     \
   }
 PDHG_FUSED_ELL(f32, float)
 PDHG_FUSED_ELL(f64, double)

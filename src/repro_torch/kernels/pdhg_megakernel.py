@@ -18,11 +18,15 @@ including the ``strongly_convex`` θ-schedule per lane: θ = 1/√(1+2γτ),
 τ ← θτ, σ ← σ/θ after every step.  Noiseless only; the engine mounts
 them only when no read noise is configured.
 
-Both take an optional leading batch axis: operators ``(B, ...)``, vectors
-``(B, d)`` and ``tau``/``sigma`` of shape ``(B,)``; one launch runs every
-lane.  The wrappers launch the kernel for CUDA tensors and take the plain
-version (a port of the reference's ``_run_steps``) for CPU tensors, and
-only for them; each counts its launches in ``.launches``.
+Both take an optional leading batch axis: operators ``(B, ...)``,
+vectors ``(B, d)`` and ``tau``/``sigma`` of shape ``(B,)``; one launch
+runs every lane.  B5 also takes each ELL form's row lengths
+(``sparse_mvm.ell_row_len``) and an ``active`` (B,) bool mask: only the
+live lanes are stepped, and a stopped lane's state, step sizes and
+(zero) sums come back as they went in.  The wrappers launch the kernel
+for CUDA tensors and take the plain version (a port of the reference's
+``_run_steps``) for CPU tensors, and only for them; each counts its
+launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -75,14 +79,25 @@ def fused_dense_steps_plain(K, K_adj, b, c, lb, ub, T, Sigma,
 
 def fused_ell_steps_plain(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T,
                           Sigma, x, x_prev, x_bar, y, tau, sigma, *,
-                          n_steps: int, gamma: float):
+                          n_steps: int, gamma: float, row_len_f=None,
+                          row_len_a=None, active=None):
     """B5's plain version: ``n_steps`` ELL steps on the forward ELL of K
-    (m, Wf) and the stored ELL of K^T (n, Wa), optionally batched."""
-    return _run_steps_plain(
-        lambda v: ell_matvec_plain(data_f, cols_f, v),
-        lambda v: ell_matvec_plain(data_a, cols_a, v),
+    (m, Wf) and the stored ELL of K^T (n, Wa), optionally batched, with
+    optional row lengths; lanes that ``active`` marks stopped come back
+    unchanged, with zero sums."""
+    out = _run_steps_plain(
+        lambda v: ell_matvec_plain(data_f, cols_f, v, row_len_f),
+        lambda v: ell_matvec_plain(data_a, cols_a, v, row_len_a),
         b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y, tau, sigma, n_steps,
         gamma)
+    if active is None:
+        return out
+    tau, sigma = (torch.as_tensor(s, dtype=x.dtype, device=x.device)
+                  .expand(active.shape) for s in (tau, sigma))
+    old = (x, x_prev, x_bar, y, tau, sigma, torch.zeros_like(x),
+           torch.zeros_like(y))
+    return tuple(torch.where(active.unsqueeze(-1) if a.dim() > active.dim()
+                             else active, a, o) for a, o in zip(out, old))
 
 
 def _state_for_kernel(m, n, B, b, c, lb, ub, T, Sigma, x, x_prev, x_bar, y,
@@ -148,18 +163,31 @@ def fused_dense_steps(K, K_adj, b, c, lb, ub, T, Sigma,
 
 def fused_ell_steps(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
                     x, x_prev, x_bar, y, tau, sigma, *,
-                    n_steps: int, gamma: float):
+                    n_steps: int, gamma: float, row_len_f=None,
+                    row_len_a=None, active=None):
     """B5: ``n_steps`` fused ELL PDHG steps; the forward ELL of K
     (m, Wf) and the stored ELL of K^T (n, Wa), int32 columns, or the
-    same with a leading batch axis and (B,) step sizes.  Same returns as
+    same with a leading batch axis and (B,) step sizes.  ``row_len_f``/
+    ``row_len_a`` (``sparse_mvm.ell_row_len`` of each form; None: every
+    slot) end each row at its last stored slot; ``active`` ((B,) bool on
+    the card, or 0-d for one instance; None: every lane) names the lanes
+    to step, and only their rows are read.  Same returns as
     ``fused_dense_steps``; the caller's tensors are not modified."""
     if _on_cpu(data_f):
         return fused_ell_steps_plain(
             data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma, x,
-            x_prev, x_bar, y, tau, sigma, n_steps=n_steps, gamma=gamma)
+            x_prev, x_bar, y, tau, sigma, n_steps=n_steps, gamma=gamma,
+            row_len_f=row_len_f, row_len_a=row_len_a, active=active)
     B = batch_of(x)
-    m, wf = check_ell(data_f, cols_f)
-    n, wa = check_ell(data_a, cols_a)
+    m, wf = check_ell(data_f, cols_f, row_len_f)
+    n, wa = check_ell(data_a, cols_a, row_len_a)
+    if active is not None:
+        active = active.reshape(-1).contiguous()
+        if (active.dtype != torch.bool or active.numel() != B
+                or active.device != data_f.device):
+            raise ValueError(f"active must be a ({B},) bool mask on "
+                             f"{data_f.device}, got {active.dtype} "
+                             f"{tuple(active.shape)} on {active.device}")
     lead = tuple(data_f.shape[:-2])
     if tuple(data_a.shape[:-2]) != lead or (lead and lead[0] != B):
         raise ValueError(f"the two ELL forms and the vectors must share "
@@ -168,15 +196,18 @@ def fused_ell_steps(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
     s = _state_for_kernel(m, n, B, b, c, lb, ub, T, Sigma, x, x_prev, x_bar,
                           y, tau, sigma, data_f, n_steps)
     _build.check_cuda_operands(data_f, data_a, b)
+    # the live-lane list the kernel's prologue writes, and its length
+    lanes = torch.empty(B + 1, dtype=torch.int32, device=data_f.device)
     p = {k: v.data_ptr() for k, v in s.items()}
     _build.launch(
         "pdhg_fused_ell", data_f.dtype, data_f.data_ptr(),
-        cols_f.data_ptr(), data_a.data_ptr(), cols_a.data_ptr(),
-        b.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-        T.data_ptr(), Sigma.data_ptr(), p["x"], p["x_prev"], p["x_bar"],
-        p["y"], p["tau_in"], p["sigma_in"], p["tau_out"], p["sigma_out"],
-        p["xs"], p["ys"], p["sched"], m, n, wf, wa, B, int(n_steps),
-        float(gamma))
+        cols_f.data_ptr(), _build.pointer(row_len_f), data_a.data_ptr(),
+        cols_a.data_ptr(), _build.pointer(row_len_a), b.data_ptr(),
+        c.data_ptr(), lb.data_ptr(), ub.data_ptr(), T.data_ptr(),
+        Sigma.data_ptr(), p["x"], p["x_prev"], p["x_bar"], p["y"],
+        p["tau_in"], p["sigma_in"], p["tau_out"], p["sigma_out"], p["xs"],
+        p["ys"], p["sched"], _build.pointer(active), lanes.data_ptr(), m, n,
+        wf, wa, B, int(n_steps), float(gamma))
     fused_ell_steps.launches += 1
     return _outputs(s)
 

@@ -10,7 +10,10 @@ so one MVM is a gather and a row reduction with no scatter anywhere,
 
 Padding entries carry data == 0, so whatever ``cols`` says for them
 (index 0 by convention) contributes nothing: the inertness contract of
-the COO stacking's (0, 0) padding.
+the COO stacking's (0, 0) padding.  ``ell_row_len`` gives each row's
+length up to its last slot that is not such (0, 0) padding; with it the
+MVM reads no slot past that length and adds one ``0 * v[0]`` term in
+their place (the same value, NaN included, as multiplying them all).
 
 The port of ``repro/kernels/sparse_mvm.py``: the numpy host helpers
 (``ell_width_bucket``, ``coo_row_widths``, ``ell_from_coo``,
@@ -20,10 +23,10 @@ is B4, the port of ``_ell_kernel`` (``ell_matvec_kernel`` in
 ``ell_matvec_plain`` the counterpart of ``ell_matvec_ref``.
 
 Both take an optional leading batch axis: ``data``/``cols`` (B, m, W)
-with ``v`` (B, n), one launch for every lane.  ``ell_matvec`` launches
-the kernel for CUDA tensors and takes the plain version for CPU tensors,
-and only for them; width 0 returns zeros without a launch.  It counts
-its kernel launches in ``.launches``.
+with ``v`` (B, n) and row lengths (B, m), one launch for every lane.
+``ell_matvec`` launches the kernel for CUDA tensors and takes the plain
+version for CPU tensors, and only for them; width 0 returns zeros
+without a launch.  It counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -113,18 +116,42 @@ def lane_index(cols: torch.Tensor, n: int) -> torch.Tensor:
     return idx
 
 
-def ell_matvec_plain(data, cols, v):
+def ell_row_len(data: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int32 (..., m): 1 + the index of each row's last slot that is not
+    (0, 0) padding (a nonzero value or a nonzero column), 0 for an empty
+    row.  One tensor op on the forms' device; nothing is read on the
+    host.  Every slot past it is padding, so the MVM may skip it."""
+    W = data.shape[-1]
+    if W == 0:
+        return torch.zeros(data.shape[:-1], dtype=torch.int32,
+                           device=data.device)
+    stored = (data != 0) | (cols != 0)
+    pos = torch.arange(1, W + 1, dtype=torch.int32, device=data.device)
+    return torch.amax(stored * pos, dim=-1).to(torch.int32)
+
+
+def ell_matvec_plain(data, cols, v, row_len=None):
     """Plain PyTorch version of B4 (the kernel's oracle): one gather and
-    one row sum, every slot multiplied, accumulated in the input type."""
+    one row sum, accumulated in the input type; every slot is
+    multiplied, and with ``row_len`` the slots from it on are read as
+    (0, 0) padding."""
     if data.shape[-1] == 0:
         return torch.zeros(data.shape[:-1], dtype=v.dtype, device=v.device)
+    if row_len is not None:
+        pos = torch.arange(data.shape[-1], device=data.device)
+        keep = pos < row_len.unsqueeze(-1)
+        data = torch.where(keep, data, torch.zeros((), dtype=data.dtype,
+                                                   device=data.device))
+        cols = torch.where(keep, cols, torch.zeros((), dtype=cols.dtype,
+                                                   device=cols.device))
     index = lane_index(cols, v.shape[-1])
     return torch.sum(data * v.reshape(-1)[index], dim=-1)
 
 
-def check_ell(data: torch.Tensor, cols: torch.Tensor):
+def check_ell(data: torch.Tensor, cols: torch.Tensor, row_len=None):
     """``(rows, W)`` of an ELL pair on the card: float values, int32
-    columns of the same (m, W) or (B, m, W) shape, both contiguous."""
+    columns of the same (m, W) or (B, m, W) shape, both contiguous, and
+    optionally int32 row lengths of shape (m,) or (B, m)."""
     if data.dim() not in (2, 3) or tuple(cols.shape) != tuple(data.shape):
         raise ValueError(f"data and cols must be one (m, W) or (B, m, W) "
                          f"shape, got {tuple(data.shape)} and "
@@ -135,15 +162,32 @@ def check_ell(data: torch.Tensor, cols: torch.Tensor):
         raise ValueError("ELL columns must be contiguous, on the values' "
                          "device")
     _build.check_cuda_operands(data)
+    check_row_len(data, row_len)
     return data.shape[-2], data.shape[-1]
 
 
-def ell_matvec(data, cols, v):
+def check_row_len(data: torch.Tensor, row_len) -> None:
+    """Row lengths, when given, are contiguous int32 of shape
+    ``data.shape[:-1]`` on the values' device."""
+    if row_len is not None and (
+            tuple(row_len.shape) != tuple(data.shape[:-1])
+            or row_len.dtype != torch.int32
+            or row_len.device != data.device
+            or not row_len.is_contiguous()):
+        raise ValueError(f"row lengths must be contiguous int32 of shape "
+                         f"{tuple(data.shape[:-1])} on {data.device}, got "
+                         f"{row_len.dtype} {tuple(row_len.shape)} on "
+                         f"{row_len.device}")
+
+
+def ell_matvec(data, cols, v, row_len=None):
     """B4: ``w[..., i] = sum_j data[..., i, j] * v[..., cols[..., i, j]]``.
 
     ``data``/``cols`` (m, W) with ``v`` (n,), or (B, m, W) with (B, n);
     ``v`` may be a strided slice whose last axis is contiguous (a part
-    of a longer vector).  Every column index must lie in [0, n): the
+    of a longer vector).  ``row_len`` ((m,) or (B, m) int32, from
+    ``ell_row_len``) lets the kernel stop each row at its last stored
+    slot; None walks all W.  Every column index must lie in [0, n): the
     kernel does not check it (``runtime.batch.stack_problems_ell``
     checks the COO it converts).  Returns a new contiguous (m,) or
     (B, m)."""
@@ -152,8 +196,9 @@ def ell_matvec(data, cols, v):
         raise ValueError(f"v must be (n,) against (m, W) or (B, n) against "
                          f"(B, m, W); got {tuple(v.shape)} against "
                          f"{tuple(data.shape)}")
+    check_row_len(data, row_len)
     if _on_cpu(data):
-        return ell_matvec_plain(data, cols, v)
+        return ell_matvec_plain(data, cols, v, row_len)
     m, W = check_ell(data, cols)
     B = data.shape[0] if data.dim() == 3 else 1
     if v.stride(-1) != 1:
@@ -165,7 +210,8 @@ def ell_matvec(data, cols, v):
     if W == 0:
         return out.zero_()
     _build.launch("ell_matvec", data.dtype, data.data_ptr(),
-                  cols.data_ptr(), v.data_ptr(), out.data_ptr(), m, W, B,
+                  cols.data_ptr(), _build.pointer(row_len), v.data_ptr(),
+                  out.data_ptr(), m, W, B,
                   m * W, v.stride(0) if v.dim() == 2 else 0, m)
     ell_matvec.launches += 1
     return out

@@ -67,6 +67,7 @@ from ..kernels.sparse_mvm import (
     coo_row_widths,
     ell_from_coo,
     ell_matvec,
+    ell_row_len,
     ell_width_bucket,
     lane_index,
 )
@@ -526,11 +527,12 @@ def _prep_one_ell(df, cf, da, ca, b, c, lb, ub, opts: PDHGOptions):
 
 class EllBucketPipeline(BucketPipeline):
     """Prep + solve over a stacked ELL bucket (``stack_problems_ell``
-    layout).  The norm estimate's matvec is two B4 launches on the
-    symmetric block; the solve mounts ``engine.sparse_ell_operator``
-    (B4 on every MVM) and, with ``opts.megakernel`` on a noiseless
-    bucket, ``engine.make_fused_ell`` (one B5 launch a window).  No dense
-    (m, n) array and no scatter exists anywhere."""
+    layout).  Each form's row lengths are taken once, on the card; the
+    norm estimate's matvec is two B4 launches on the symmetric block;
+    the solve mounts ``engine.sparse_ell_operator`` (B4 on every MVM)
+    and, with ``opts.megakernel`` on a noiseless bucket,
+    ``engine.make_fused_ell`` (one B5 launch a window).  No dense (m, n)
+    array and no scatter exists anywhere."""
 
     uses_kernels = True
 
@@ -539,6 +541,9 @@ class EllBucketPipeline(BucketPipeline):
         df, cf, da, ca, b, c, lb, ub = arrays
         (sf, sa, bs, cs, lbs, ubs, T, Sigma, D1, D2, idx_f, idx_a) = \
             _prep_one_ell(df, cf, da, ca, b, c, lb, ub, self.opts)
+        # every MVM of the bucket stops at each row's last stored slot;
+        # the scaled forms store no slot that df/da leave empty
+        rl_f, rl_a = ell_row_len(df, cf), ell_row_len(da, ca)
         if donate:
             arrays[0] = arrays[2] = df = da = None
         B, m, n = bs.shape[0], bs.shape[-1], cs.shape[-1]
@@ -549,18 +554,18 @@ class EllBucketPipeline(BucketPipeline):
         del idx_f, idx_a
 
         def mv(v):         # symmetric block M' of Keff, matvec-only
-            top = ell_matvec(deff_f, cf, v[:, m:])
-            bot = ell_matvec(deff_a, ca, v[:, :m])
+            top = ell_matvec(deff_f, cf, v[:, m:], rl_f)
+            bot = ell_matvec(deff_a, ca, v[:, :m], rl_a)
             return torch.cat([top, bot], dim=-1)
 
         rho_raw, rho = self._rho(mv, m + n, B, draws, rho_seeds, sf.dtype)
         deff_f = deff_a = None
         op = engine.sparse_ell_operator(sf, cf, sa, ca, self.sigma_read,
-                                        draws.noise)
+                                        draws.noise, rl_f, rl_a)
         if self.opts.megakernel and self.sigma_read == 0.0:
             op = op._replace(fuse=engine.make_fused_ell(
                 sf, cf, sa, ca, bs, cs, lbs, ubs, T, Sigma,
-                self.opts.gamma))
+                self.opts.gamma, rl_f, rl_a))
         x0 = torch.clamp(draws.x0, lbs, ubs)
         x, y, its, merit, windows = yield from engine.solve_core(
             None, None, bs, cs, lbs, ubs, T, Sigma, rho, draws.noise,

@@ -178,9 +178,9 @@ def _batch_window_counts(rule, restart, megakernel, kind):
         if op.fuse is not None:
             fuse = op.fuse
 
-            def fused(state, n_steps):
+            def fused(state, n_steps, active):
                 calls[0] += 2 * n_steps      # one launch, 2 MVMs a step
-                return fuse(state, n_steps)
+                return fuse(state, n_steps, active)
             op = op._replace(fuse=fused)
     g = torch.Generator().manual_seed(0)
     x0 = torch.clamp(torch.randn(B, n, generator=g, dtype=torch.float64),
