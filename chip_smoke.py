@@ -18,19 +18,26 @@ Phases, in order; any failure raises and exits non-zero:
    with a batch of 3 and with zero padding; B4 and B5 also with a batch
    of 3 and at width 0, each with and without row lengths, B4 also with
    a strided v and v[0] = inf, B5 also with half its lanes masked off;
-   B1-B3 also batched), timed with CUDA events beside the plain version
-   and a yardstick; B4's and B5's registers and resident blocks an SM;
+   both forms of B3 also with a batch of 3, tiny lanes, more lanes than
+   SMs, rows too long for the transpose form's ring, and half their
+   lanes masked off; B1-B3 also batched), timed with CUDA events beside
+   the plain version and a yardstick; B4's, B5's and B3's transpose
+   form's registers and resident blocks an SM;
 4. the dense path: the CLI default (``gen-ip002``), then the full-width
    dense instance solved twice, stepped (B1/B2 every step) and with the
-   check-window megakernel (B3 every window).  Both must reach
-   ``optimal`` on the same iteration count, with the launch counters
-   showing each kernel on its path;
+   check-window megakernel (B3's transpose form every window, its
+   two-matrix form never).  Both must reach ``optimal`` on the same
+   iteration count, with the launch counters showing each kernel on its
+   path;
 5. the crossbar paths: the CLI's ``--backend taox`` and ``--backend
    epiram --refine-rounds 2`` and the host driver on the crossbar
    simulation with B6 (``gen-ip002``, each within the paper's 5e-2
    objective band); then at full width, TaOx-HfOx in f64, the host
    driver with B6 on every MVM, the same driver for 200 iterations with
-   and without B6 (the two ``x`` within 1e-9), and ``solve_crossbar_jit``.
+   and without B6 (the two ``x`` within 1e-9), ``solve_crossbar_jit``,
+   and ``solve_crossbar_jit`` on a noiseless TaOx-HfOx stepped and with
+   the megakernel (B3's two-matrix form on the programmed blocks every
+   window; the two on the same iteration count, ``x`` within 1e-8).
    Each path's launch counts are read on their own;
 6. the small batch streams through the CLI (``--backend batch``: dense
    stepped and with ``--megakernel``, ``--sparse``, and ``--device taox
@@ -92,6 +99,8 @@ TOLS = {
     ("primal_update", "float64"): 1e-14, ("primal_update", "float32"): 1e-6,
     ("fused_dense_steps", "float64"): 1e-12,
     ("fused_dense_steps", "float32"): 1e-5,
+    ("fused_dense_steps_kt", "float64"): 1e-12,
+    ("fused_dense_steps_kt", "float32"): 1e-5,
     ("ell_matvec", "float64"): 1e-13, ("ell_matvec", "float32"): 1e-5,
     ("fused_ell_steps", "float64"): 1e-12,
     ("fused_ell_steps", "float32"): 1e-5,
@@ -99,7 +108,8 @@ TOLS = {
 }
 
 KERNEL_NAMES = ("dual_update", "primal_update", "fused_dense_steps",
-                "ell_matvec", "fused_ell_steps", "crossbar_mvm")
+                "ell_matvec", "fused_ell_steps", "crossbar_mvm",
+                "fused_dense_steps_kt")
 SOURCES = {
     "dual_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "primal_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
@@ -107,6 +117,7 @@ SOURCES = {
     "ell_matvec": "src/repro_torch/kernels/csrc/sparse_mvm.cu",
     "fused_ell_steps": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "crossbar_mvm": "src/repro_torch/kernels/csrc/crossbar_mvm.cu",
+    "fused_dense_steps_kt": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
 }
 REPLACES = {
     "dual_update": "src/repro/kernels/pdhg_update.py:45",
@@ -115,6 +126,7 @@ REPLACES = {
     "ell_matvec": "src/repro/kernels/sparse_mvm.py:119",
     "fused_ell_steps": "src/repro/kernels/pdhg_megakernel.py:95",
     "crossbar_mvm": "src/repro/kernels/crossbar_mvm.py:41",
+    "fused_dense_steps_kt": "src/repro/kernels/pdhg_megakernel.py:74",
 }
 
 # the full-width sparse stream: the reference's SPARSE_STREAM_SHAPES
@@ -154,6 +166,9 @@ OBJ_BAND = 5e-2            # the paper's Table-2 gap band (test_system)
 HOST_FULL_ITERS = 20000
 HOST_AB_ITERS = 200        # kernel against plain product, same seeds
 JIT_FULL_ITERS = 5000
+# the noiseless crossbar with the megakernel: B3's two-matrix form on the
+# programmed blocks (K_fwd and K_adj are distinct cells)
+JIT_NOISELESS_ITERS = 2000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -333,20 +348,26 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                     plain_ms=cuda_ms(plain, inner=100, queued=True),
                     library_ms=None,
                     bound=bound_ms((8 * n + 2) * size, 9 * n, dname))
-            # B3 check window, with and without the theta schedule
+            # B3 check window, both forms, with and without the theta
+            # schedule: the two-matrix form on K and a contiguous K^T, the
+            # transpose form on K alone
             w = _window_inputs(g, m, n, dt)
-            for gamma in (0.0, 0.05):
-                outs = mk.fused_dense_steps(**w, n_steps=steps, gamma=gamma)
-                refs = mk.fused_dense_steps_plain(**w, n_steps=steps,
-                                                  gamma=gamma)
-                torch.cuda.synchronize()
-                err, rel = max_err(outs, refs)
-                rows.setdefault("fused_dense_steps", []).append(dict(
-                    dtype=dname, shape=[m, n], steps=steps, gamma=gamma,
-                    max_abs_err=err, rel_err=rel))
-                check(rel <= TOLS[("fused_dense_steps", dname)],
-                      f"fused_dense_steps {dname} {tag} gamma={gamma}: "
-                      f"rel err {rel:.3e}")
+            forms = (("fused_dense_steps", w),
+                     ("fused_dense_steps_kt", dict(w, K_adj=None)))
+            for name, wf in forms:
+                for gamma in (0.0, 0.05):
+                    outs = mk.fused_dense_steps(**wf, n_steps=steps,
+                                                gamma=gamma)
+                    refs = mk.fused_dense_steps_plain(**w, n_steps=steps,
+                                                      gamma=gamma)
+                    torch.cuda.synchronize()
+                    err, rel = max_err(outs, refs)
+                    rows.setdefault(name, []).append(dict(
+                        dtype=dname, shape=[m, n], steps=steps, gamma=gamma,
+                        max_abs_err=err, rel_err=rel))
+                    check(rel <= TOLS[(name, dname)],
+                          f"{name} {dname} {tag} gamma={gamma}: "
+                          f"rel err {rel:.3e}")
             if tag == "main":
                 op = engine.dense_operator(w["K"], w["K_adj"])
                 state0 = engine.PDHGState(w["x"], w["x_prev"], w["x_bar"],
@@ -369,22 +390,29 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                         torch.mv(w["K"], w["x_bar"])
                         torch.mv(w["K_adj"], w["y"])
 
-                # reads K, K_adj, b, Sigma, y, c, lb, ub, T, x, x_bar, tau,
-                # sigma (x_prev is overwritten unread); writes x, x_prev,
-                # x_bar, the x sum, y, the y sum, tau, sigma
-                vecs_in = 3 * m + 6 * n + 2
-                vecs_out = 4 * n + 2 * m + 2
-                rows["fused_dense_steps"][-1].update(
-                    ms=cuda_ms(lambda: mk.fused_dense_steps(
-                        **w, n_steps=steps, gamma=0.05)),
-                    plain_ms=cuda_ms(lambda: mk.fused_dense_steps_plain(
-                        **w, n_steps=steps, gamma=0.05)),
-                    library_ms=None,
-                    yardstick_ms=cuda_ms(stepped),
-                    gemv_ms=cuda_ms(gemvs),
-                    bound=bound_ms(
-                        (2 * m * n + vecs_in + vecs_out) * size,
-                        steps * (4 * m * n + 4 * m + 9 * n), dname))
+                # reads K (and K_adj), b, Sigma, y, c, lb, ub, T, x, x_bar,
+                # tau, sigma (x_prev is overwritten unread); writes x,
+                # x_prev, x_bar, the x sum, y, the y sum, tau, sigma
+                vecs = (3 * m + 6 * n + 2) + (4 * n + 2 * m + 2)
+                ops = steps * (4 * m * n + 4 * m + 9 * n)
+                yard, gemv = cuda_ms(stepped), cuda_ms(gemvs)
+                times = {}
+                # in turns, to share the card's state: two, kt, kt, two
+                for name, wf in forms + forms[::-1]:
+                    times.setdefault(name, []).append(cuda_ms(
+                        lambda: mk.fused_dense_steps(**wf, n_steps=steps,
+                                                     gamma=0.05)))
+                for name, wf in forms:
+                    k_bytes = (2 if wf["K_adj"] is not None else 1) * m * n
+                    rows[name][-1].update(
+                        ms=statistics.median(times[name]),
+                        ms_runs=times[name],
+                        plain_ms=cuda_ms(lambda: mk.fused_dense_steps_plain(
+                            **wf, n_steps=steps, gamma=0.05)),
+                        library_ms=None, yardstick_ms=yard, gemv_ms=gemv,
+                        reread_floor_ms=1e3 * steps * k_bytes * size
+                        / HBM_BYTES_PER_S,
+                        bound=bound_ms((k_bytes + vecs) * size, ops, dname))
             del w
     for name, checks in rows.items():
         for r in checks:
@@ -399,7 +427,80 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                      else "")
                   + (f" yardstick_ms={r['yardstick_ms']:.6f}"
                      f" gemv_ms={r['gemv_ms']:.6f}"
+                     f" reread_floor_ms={r['reread_floor_ms']:.6f}"
+                     f" ms_runs={r['ms_runs']}"
                      if "yardstick_ms" in r else ""), flush=True)
+    return rows
+
+
+def phase_dense_forms(steps: int):
+    """Both forms of B3 against the plain version beyond the main and
+    ragged shapes: a batch of 3, the small CLI stream's lanes, more lanes
+    than SMs, rows too long for the transpose form's ring (8192 in f64,
+    16384 in f32), each batch also with half its lanes masked off; the
+    caller's tensors unchanged and one launch each."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import pdhg_megakernel as mk
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    rows = {"fused_dense_steps": [], "fused_dense_steps_kt": []}
+    cases = (("batch3", 3, 133, 217), ("tiny", 5, 8, 14),
+             ("many", 200, 10, 18), ("wide", 1, 64, 20000))
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        for tag, B, m, n in cases:
+            w = _window_inputs(g, B * m, n, dt)
+            w = {k: (v.view(B, m, n) if k == "K" else v)
+                 for k, v in w.items()}
+            w["K_adj"] = w["K"].transpose(1, 2).contiguous()
+            for k, d in (("b", m), ("Sigma", m), ("y", m), ("c", n),
+                         ("lb", n), ("ub", n), ("T", n), ("x", n),
+                         ("x_prev", n), ("x_bar", n)):
+                src = w[k]
+                w[k] = (src.view(B, d) if src.numel() == B * d
+                        else torch.stack([src] * B))
+            w["tau"] = torch.linspace(0.2, 0.3, B, dtype=dt, device="cuda")
+            w["sigma"] = torch.full((B,), 0.3, dtype=dt, device="cuda")
+            before = {k: v.clone() for k, v in w.items()}
+            half = torch.arange(B, device="cuda") % 2 == 0
+            for live in (("all", "half") if B > 1 else ("all",)):
+                act = half if live == "half" else None
+                for name, K_adj in (("fused_dense_steps", w["K_adj"]),
+                                    ("fused_dense_steps_kt", None)):
+                    kernels.reset_launch_counts()
+                    outs = mk.fused_dense_steps(
+                        **dict(w, K_adj=K_adj), n_steps=steps, gamma=0.05,
+                        active=act)
+                    refs = mk.fused_dense_steps_plain(
+                        **w, n_steps=steps, gamma=0.05, active=act)
+                    torch.cuda.synchronize()
+                    counts = kernels.launch_counts()
+                    err, rel = max_err(outs, refs)
+                    rows[name].append(dict(
+                        dtype=dname, shape=[B, m, n], tag=tag, lanes=live,
+                        max_abs_err=err, rel_err=rel))
+                    check(rel <= TOLS[(name, dname)],
+                          f"{name} {dname} {tag} lanes={live}: rel err "
+                          f"{rel:.3e}")
+                    check(counts[name] == 1 and sum(counts.values()) == 1,
+                          f"{name} {tag}: launches {counts}")
+                    check(all(torch.equal(w[k], before[k]) for k in w),
+                          f"{name} {tag}: the caller's tensors changed")
+                    if act is not None:
+                        check(all(torch.equal(o[~act], w[k][~act])
+                                  for o, k in zip(outs[:4], (
+                                      "x", "x_prev", "x_bar", "y")))
+                              and not outs[6][~act].any()
+                              and not outs[7][~act].any(),
+                              f"{name} {dname} {tag}: a masked lane moved")
+            del w, before
+    for name, checks in rows.items():
+        for r in checks:
+            print(f"kernel {name} " + " ".join(
+                f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in r.items()), flush=True)
     return rows
 
 
@@ -555,10 +656,12 @@ def phase_main(instance: str):
             res.iterations, CHECK_EVERY, opts.lanczos_iters, restart=True),
             f"{instance} {label}: mvm_calls {res.mvm_calls}")
         windows = res.iterations // CHECK_EVERY
+        # the megakernel solve builds its adjoint as K's transpose: B3's
+        # transpose form once a window, its two-matrix form never
         want = (launches(dual_update=res.iterations,
                          primal_update=res.iterations)
                 if label == "stepped" else
-                launches(fused_dense_steps=windows))
+                launches(fused_dense_steps_kt=windows))
         check(delta == want, f"{instance} {label}: launches {delta}, "
                              f"expected {want}")
         results[label] = (res, wall)
@@ -691,6 +794,44 @@ def phase_crossbar(instance: str):
                             primal_update=r.iterations),
           f"jit full: launches {delta}")
     counts["jit full"] = delta
+    # (d) the same on a noiseless device, stepped and with the megakernel:
+    # the decoded blocks K_fwd and K_adj are distinct cells, so B3 runs
+    # its two-matrix form every window; both runs must agree
+    noiseless = dataclasses.replace(TAOX_HFOX, sigma_read=0.0)
+    twins = {}
+    for label, mega in (("jit noiseless stepped", False),
+                        ("jit noiseless megakernel", True)):
+        opts = PDHGOptions(max_iters=JIT_NOISELESS_ITERS,
+                           check_every=CHECK_EVERY, megakernel=mega)
+        (rep, wall, peak), delta = _counted(lambda: _timed(
+            lambda: solve_crossbar_jit(lp, opts, device=noiseless)))
+        r, led = rep.result, rep.ledger
+        print(f"crossbar {label}: status={r.status} "
+              f"iterations={r.iterations} merit={r.merit:.3e} "
+              f"mvm_calls={r.mvm_calls} wall_s={wall:.3f} "
+              f"max_memory_allocated={peak} launches={delta} "
+              f"{_ledger_line(led)}", flush=True)
+        # its merit must fall below the host driver's at its first check
+        check(led.mvm_count == r.mvm_calls and np.isfinite(r.merit)
+              and r.merit < first,
+              f"{label}: mvm_count {led.mvm_count}, mvm_calls "
+              f"{r.mvm_calls}, merit {r.merit:.3e}")
+        want = (launches(fused_dense_steps=r.iterations // CHECK_EVERY)
+                if mega else launches(dual_update=r.iterations,
+                                      primal_update=r.iterations))
+        check(delta == want, f"{label}: launches {delta}, expected {want}")
+        counts[label] = delta
+        twins[mega] = (r, led)
+    (ra, la), (rb, lb) = twins[False], twins[True]
+    dx = float(np.max(np.abs(ra.x - rb.x)))
+    print(f"crossbar jit noiseless: stepped vs megakernel max|dx|={dx:.3e}",
+          flush=True)
+    check(ra.iterations == rb.iterations and ra.status == rb.status,
+          f"jit noiseless: stepped {ra.status}/{ra.iterations} vs "
+          f"megakernel {rb.status}/{rb.iterations}")
+    check(la.mvm_count == lb.mvm_count,
+          f"jit noiseless: ledgers {la.mvm_count} vs {lb.mvm_count}")
+    check(dx <= 1e-8, f"jit noiseless: x differs by {dx:.3e}")
     return counts
 
 
@@ -798,12 +939,22 @@ def _csr(data, cols, n):
 
 def kernel_attrs_lines():
     """B4's and B5's registers, local bytes and resident blocks an SM, in
-    f64 and f32, 16-byte-load and scalar forms."""
+    f64 and f32, 16-byte-load and scalar forms, and B3's transpose
+    form's, with its dynamic shared memory and variant, at the ragged,
+    main and wide row lengths."""
     import torch
 
     from repro_torch.kernels import _build
 
     out = {}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        for n in (1235, 7680, 20000):
+            a = _build.dense_t_attrs(dt, n)
+            print(f"kernel attrs fused_dense_steps_kt {dname} n={n}: "
+                  + " ".join(f"{k}={v}" for k, v in a.items()), flush=True)
+            out.setdefault("fused_dense_steps_kt", {})[
+                f"{dname} n={n}"] = a
     for name, key in (("ell_matvec", "ell_matvec"),
                       ("pdhg_fused_ell", "fused_ell_steps")):
         for dt in (torch.float64, torch.float32):
@@ -1061,15 +1212,18 @@ def phase_ell_kernels(bucket, steps: int):
             src = wd[k]
             bw[k] = (src.view(4, d) if src.numel() == 4 * d
                      else torch.stack([src] * 4))
-        outs = mk.fused_dense_steps(**bw, n_steps=steps, gamma=0.05)
         refs = mk.fused_dense_steps_plain(**bw, n_steps=steps, gamma=0.05)
-        torch.cuda.synchronize()
-        err, rel = max_err(outs, refs)
-        rows["batched"].append(dict(kernel="fused_dense_steps", dtype=dname,
-                                    shape=[4, 1024, 2048], max_abs_err=err,
-                                    rel_err=rel))
-        check(rel <= TOLS[("fused_dense_steps", dname)],
-              f"batched fused_dense_steps {dname}: rel err {rel:.3e}")
+        for name, K_adj in (("fused_dense_steps", bw["K_adj"]),
+                            ("fused_dense_steps_kt", None)):
+            outs = mk.fused_dense_steps(**dict(bw, K_adj=K_adj),
+                                        n_steps=steps, gamma=0.05)
+            torch.cuda.synchronize()
+            err, rel = max_err(outs, refs)
+            rows["batched"].append(dict(kernel=name, dtype=dname,
+                                        shape=[4, 1024, 2048],
+                                        max_abs_err=err, rel_err=rel))
+            check(rel <= TOLS[(name, dname)],
+                  f"batched {name} {dname}: rel err {rel:.3e}")
     for name in ("ell_matvec", "fused_ell_steps"):
         for r in rows[name]:
             print(f"kernel {name} " + " ".join(
@@ -1110,12 +1264,14 @@ def phase_small_streams():
     exact("small dense", out)
     check(d["dual_update"] == d["primal_update"] > 0
           and d["dual_update"] % CHECK_EVERY == 0
-          and d["fused_dense_steps"] == d["ell_matvec"] == 0,
+          and d["fused_dense_steps"] == d["ell_matvec"] == 0
+          and d["fused_dense_steps_kt"] == 0,
           f"small dense: launches {d}")
     out, d = run("small dense megakernel",
                  ["--instances", SMALL_DENSE, "--megakernel"])
     exact("small dense megakernel", out)
-    check(d["fused_dense_steps"] > 0 and d["dual_update"] == 0,
+    check(d["fused_dense_steps_kt"] > 0 and d["fused_dense_steps"] == 0
+          and d["dual_update"] == 0,
           f"small dense megakernel: launches {d}")
     sp_specs = SMALL_SPARSE.split(",")
     sp_lps = [cli.load_instance(s, seed=i) for i, s in enumerate(sp_specs)]
@@ -1229,7 +1385,8 @@ def phase_stream(lps, probe: bool = False):
 
 # the full-width path on which each kernel's ``launches`` is read
 MAIN_PATH_OF = {"dual_update": "stepped", "primal_update": "stepped",
-                "fused_dense_steps": "megakernel",
+                "fused_dense_steps": "jit noiseless megakernel",
+                "fused_dense_steps_kt": "megakernel",
                 "ell_matvec": "stream stepped",
                 "fused_ell_steps": "stream megakernel",
                 "crossbar_mvm": "host full"}
@@ -1301,6 +1458,8 @@ def main() -> int:
           flush=True)
     m, n = (int(v) for v in MAIN_INSTANCE.split(":")[1].split("x"))
     rows = phase_kernels(m, n, CHECK_EVERY)
+    for name, extra in phase_dense_forms(CHECK_EVERY).items():
+        rows[name] += extra
     rows["crossbar_mvm"] = phase_crossbar_kernel(m + n, TAOX_HFOX.sigma_read)
     ell_rows = phase_ell_kernels(bucket, CHECK_EVERY)
     del bucket
@@ -1318,7 +1477,7 @@ def main() -> int:
               "adjoint_all_slots_ms", "adjoint_library_ms",
               "adjoint_nnz_bound_ms", "all_slots_bound_ms", "nnz",
               "adjoint_nnz", "half_masked_ms", "all_slots_reread_floor_ms",
-              "local_gather_ms")
+              "local_gather_ms", "ms_runs")
     for name in KERNEL_NAMES:
         main_row = next(r for r in rows[name]
                         if r["dtype"] == "float64" and "ms" in r)

@@ -252,8 +252,10 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
                      gamma) -> Callable:
     """``Operator.fuse`` hook for the dense backend: one
     ``kernels.pdhg_megakernel`` launch per check window.  Noiseless
-    only; ``K_adj`` must be a contiguous (n, m) tensor.  B3 steps every
-    lane: it ignores ``active``."""
+    only; ``K_fwd`` a contiguous (m, n) tensor, and ``K_adj`` a
+    contiguous (n, m) one (the two-matrix form of B3) or None when the
+    adjoint is exactly K^T (the transpose form, which reads K once a
+    step).  Only the lanes ``active`` marks live are stepped."""
 
     def fuse(state: PDHGState, n_steps: int, active=None):
         (x, x_prev, x_bar, y, tau, sigma, xs, ys) = \
@@ -261,7 +263,7 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
                 K_fwd, K_adj, b, c, lb, ub, T, Sigma,
                 state.x, state.x_prev, state.x_bar, state.y,
                 state.tau, state.sigma,
-                n_steps=int(n_steps), gamma=float(gamma))
+                n_steps=int(n_steps), gamma=float(gamma), active=active)
         return (PDHGState(x=x, x_prev=x_prev, x_bar=x_bar, y=y,
                           tau=tau, sigma=sigma), xs, ys)
 
@@ -612,8 +614,10 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
     start the loop (both or neither); by default one instance's
     projected-Gaussian start is drawn from ``generator``, which also
     drives the read noise of the default dense operator (an (m, n) K or
-    a (B, m, n) stack).  The dense megakernel is mounted when asked for
-    on a noiseless dense operator.
+    a (B, m, n) stack); ``K_adj=None`` means the adjoint is exactly
+    ``K_fwd``'s transpose.  The dense megakernel is mounted when asked
+    for on a noiseless dense operator: its transpose form when
+    ``K_adj`` is None, else its two-matrix form.
     """
     (max_iters, tol, eta, omega, gamma, check_every, restart_beta,
      sigma_read, kernel) = static[:9]
@@ -629,12 +633,13 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
         x0, y0 = draw_init(generator, b.shape[-1], c.shape[-1], lb, ub,
                            b.dtype)
     if operator is None:
-        operator = dense_operator(K_fwd, K_adj, sigma_read, generator)
+        operator = dense_operator(K_fwd, K_fwd.mT if K_adj is None else K_adj,
+                                  sigma_read, generator)
     if (megakernel and operator.fuse is None and sigma_read == 0.0
             and operator.name == "dense"):
         operator = operator._replace(fuse=make_fused_dense(
-            K_fwd.contiguous(), K_adj.contiguous(), b, c, lb, ub, T, Sigma,
-            gamma))
+            K_fwd.contiguous(), None if K_adj is None else K_adj.contiguous(),
+            b, c, lb, ub, T, Sigma, gamma))
     return (yield from pdhg_loop(
         operator, make_updates(kernel),
         b, c, lb, ub, T, Sigma, x0, y0, tau0, sigma0,

@@ -412,7 +412,7 @@ def solve_jit(
         return torch.as_tensor(a, dtype=dt, device=dev)
 
     Kf = scaled.K if K_fwd is None else on_dev(K_fwd).contiguous()
-    Ka = (Kf.T if K_adj is None else on_dev(K_adj)).contiguous()
+    Ka = None if K_adj is None else on_dev(K_adj).contiguous()
     x0, y0, v0 = place_draws(draws, scaled.lb, scaled.ub)
     if opts.norm_override is not None:
         rho = torch.tensor(float(opts.norm_override), dtype=dt, device=dev)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
     pdhg_update      B1 dual_update, B2 primal_update (fused updates)
-    pdhg_megakernel  B3 fused_dense_steps, B5 fused_ell_steps (one launch
-                     per check window)
+    pdhg_megakernel  B3 fused_dense_steps (two-matrix form) and
+                     fused_dense_steps_kt (transpose form), B5
+                     fused_ell_steps (one launch per check window)
     sparse_mvm       B4 ell_matvec (row-blocked ELL sparse MVM)
     crossbar_mvm     B6 crossbar_mvm (differential-pair crossbar MVM)
 
@@ -18,7 +19,8 @@ from . import crossbar_mvm, pdhg_megakernel, pdhg_update, sparse_mvm
 
 WRAPPERS = (pdhg_update.dual_update, pdhg_update.primal_update,
             pdhg_megakernel.fused_dense_steps, sparse_mvm.ell_matvec,
-            pdhg_megakernel.fused_ell_steps, crossbar_mvm.crossbar_mvm)
+            pdhg_megakernel.fused_ell_steps, crossbar_mvm.crossbar_mvm,
+            pdhg_megakernel.fused_dense_steps_kt)
 
 
 def launch_counts() -> dict:

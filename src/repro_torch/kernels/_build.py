@@ -39,9 +39,12 @@ _SIGNATURES = {
     # vectors, step sizes, out; per-lane length; batch
     "pdhg_dual_update": [_P] * 6 + [_LL, _INT, _P],
     "pdhg_primal_update": [_P] * 10 + [_LL, _INT, _P],
-    # operands, state, step sizes in/out, sums, schedule scratch;
-    # m, n, batch, steps; gamma
-    "pdhg_fused_dense": [_P] * 19 + [_INT] * 4 + [ctypes.c_double, _P],
+    # operands, state, step sizes in/out, sums, schedule scratch, the
+    # live-lane mask and list; m, n, batch, steps; gamma
+    "pdhg_fused_dense": [_P] * 21 + [_INT] * 4 + [ctypes.c_double, _P],
+    # the transpose form: K alone, then as above with the partials'
+    # scratch before the mask; its slots, m, n, batch, steps; gamma
+    "pdhg_fused_dense_t": [_P] * 21 + [_INT] * 5 + [ctypes.c_double, _P],
     # as above with the two ELL forms (values, columns, row lengths)
     # first and the live-lane mask and list last; m, n, Wf, Wa, batch,
     # steps
@@ -54,7 +57,8 @@ _SIGNATURES = {
 }
 # kernels whose registers, local (spill) bytes and resident blocks an SM
 # ``kernel_attrs`` reads: (vectorised form, int[3] out), no stream
-_ATTRS = ("ell_matvec_attrs", "pdhg_fused_ell_attrs")
+_ATTRS = ("ell_matvec_attrs", "pdhg_fused_ell_attrs",
+          "pdhg_fused_dense_t_attrs")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 builds = 0      # nvcc runs of this process (a cache of built libraries
@@ -207,6 +211,20 @@ def kernel_attrs(name: str, dtype: torch.dtype, vectorised: bool) -> dict:
     check(fn(int(vectorised), ctypes.cast(out, _P)), f"{name}_attrs")
     return {"registers": out[0], "local_bytes": out[1],
             "blocks_per_sm": out[2]}
+
+
+def dense_t_attrs(dtype: torch.dtype, n: int) -> dict:
+    """Registers a thread, local (spill) bytes a thread, resident blocks
+    an SM and dynamic shared memory a block of B3's transpose form at
+    row length ``n`` on an aligned K, and its variant there: ``ring16``
+    (16-byte chunks in shared-memory stages), ``ring`` (one element a
+    chunk) or ``wide`` (rows too long for the stages)."""
+    out = (ctypes.c_int * 5)()
+    fn = getattr(library(), f"pdhg_fused_dense_t_attrs_{_suffix(dtype)}")
+    check(fn(int(n), ctypes.cast(out, _P)), "pdhg_fused_dense_t_attrs")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2], "dynamic_smem_bytes": out[3],
+            "form": ("wide", "ring", "ring16")[out[4]]}
 
 
 def pointer(t) -> int | None:

@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the PDHG solve: the fused
-// updates (B1, B2) and the check-window megakernels (B3 dense, B5 ELL).
+// updates (B1, B2) and the check-window megakernels (B3 dense, in a
+// two-matrix and a transpose form, and B5 ELL).
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -75,21 +76,34 @@ primal_update_kernel(const T* __restrict__ x, const T* __restrict__ kty,
 
 // ---------------------------------------------------------------- B3 ---
 // Replaces repro/kernels/pdhg_megakernel.py::_dense_kernel
-// (fused_dense_steps): n_steps full PDHG steps of every lane, theta
+// (fused_dense_steps): n_steps full PDHG steps of every live lane, theta
 // schedule included, in ONE launch, returning the new state and the
-// window's ergodic sums.
+// window's ergodic sums.  Two forms; the caller says which matrix the
+// adjoint is, and each form is launched and counted on its own.
 //
-// Bound on the H100: bytes.  Every step reads K (B x m x n) and K_adj
-// (B x n x m) once; at 3840 x 7680 in f64 that is 472 MB a step, nine
-// times the 50 MB L2, so HBM at 3.35 TB/s bounds a step at about 141 us.
-// The vectors (x_bar, y) are re-read by every warp but stay in L2.
+// The two-matrix form (fused_dense_kernel) reads a distinct K_adj: the
+// programmed crossbar blocks.  Bound on the H100: bytes.  Every step
+// reads K (B x m x n) and K_adj (B x n x m) once; at 3840 x 7680 in f64
+// that is 472 MB a step, nine times the 50 MB L2, so HBM at 3.35 TB/s
+// floors a step at 141 us.  Design: pdhg::fused_steps with one warp per
+// dense row (coalesced loads), the live lanes' rows spread over the
+// whole grid, so a batch of small instances still fills the card.
 //
-// Design: a cooperative launch of at most (resident blocks per SM x SM
-// count) blocks, the only grid size at which grid.sync() cannot hang; the
-// step loop is pdhg::fused_steps with one warp per dense row (coalesced
-// loads), the rows of all B lanes spread over the whole grid, so a batch
-// of small instances still fills the card.  Reading K once for both
-// products, TMA and tensor cores on the f32 path are left for later.
+// The transpose form (fused_dense_t_kernel) serves an adjoint that IS
+// K^T (solve_jit without K_adj, the dense bucket pipeline) and reads K
+// once a step for both products: pdhg::fused_steps_kt, whose note gives
+// the design and the sum orders.  Bound on the H100: its operations over
+// 67 TFLOP/s when each input is read once (0.18 ms for a 100-step window
+// at 3840 x 7680 f64); what it must re-read is K, every step, since K is
+// 4.7 times the L2: 236 MB a step, a floor of 70 us at 3.35 TB/s, 7.04 ms
+// a 100-step window in f64 and 3.52 ms in f32, below the two GEMVs any
+// two-pass design pays.  One block of 512 threads an SM; in the ring form
+// (rows up to 8192 elements in f64, 16384 in f32, 16-byte aligned; 4096
+// otherwise) each thread holds its 16 (f64) or 32 (f32) elements of the
+// partial K^T y in registers, and x_bar and the rows ahead take up to
+// 216 KB of shared memory.  Rows longer than that take the wide form,
+// which sums each row from HBM and re-reads it from the L1/L2 for the
+// update.  Tensor cores do not help a GEMV in f64 and are not used.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_dense_kernel(const T* __restrict__ K, const T* __restrict__ Ka,
@@ -99,12 +113,30 @@ fused_dense_kernel(const T* __restrict__ K, const T* __restrict__ Ka,
                    T* x, T* x_prev, T* x_bar, T* y,
                    const T* __restrict__ tau_in,
                    const T* __restrict__ sigma_in, T* tau_out,
-                   T* sigma_out, T* xs, T* ys, T* sched, int m, int n, int B,
-                   int n_steps, T gamma) {
+                   T* sigma_out, T* xs, T* ys, T* sched,
+                   const unsigned char* __restrict__ active, int* lanes,
+                   int m, int n, int B, int n_steps, T gamma) {
   pdhg::fused_steps(DenseRows<T>{K, n}, DenseRows<T>{Ka, m}, b, c, lb, ub,
                     Tp, S, x, x_prev, x_bar, y, tau_in, sigma_in, tau_out,
-                    sigma_out, sched, xs, ys, nullptr, nullptr, m, n, B,
+                    sigma_out, sched, xs, ys, active, lanes, m, n, B,
                     n_steps, gamma);
+}
+
+template <typename T, bool kRing, bool kVec>
+__global__ void __launch_bounds__(pdhg::kKtThreads, 1)
+fused_dense_t_kernel(const T* __restrict__ K, const T* __restrict__ b,
+                     const T* __restrict__ c, const T* __restrict__ lb,
+                     const T* __restrict__ ub, const T* __restrict__ Tp,
+                     const T* __restrict__ S, T* x, T* x_prev, T* x_bar,
+                     T* y, const T* __restrict__ tau_in,
+                     const T* __restrict__ sigma_in, T* tau_out,
+                     T* sigma_out, T* xs, T* ys, T* sched, T* part,
+                     const unsigned char* __restrict__ active, int* lanes,
+                     int m, int n, int B, int n_steps, T gamma) {
+  pdhg::fused_steps_kt<T, kRing, kVec>(
+      K, b, c, lb, ub, Tp, S, x, x_prev, x_bar, y, tau_in, sigma_in,
+      tau_out, sigma_out, sched, xs, ys, part, active, lanes, m, n, B,
+      n_steps, gamma);
 }
 
 // ---------------------------------------------------------------- B5 ---
@@ -206,8 +238,9 @@ int fused_dense(const void* K, const void* Ka, const void* b, const void* c,
                 const void* lb, const void* ub, const void* Tp,
                 const void* S, void* x, void* x_prev, void* x_bar, void* y,
                 const void* tau_in, const void* sigma_in, void* tau_out,
-                void* sigma_out, void* xs, void* ys, void* sched, int m,
-                int n, int B, int n_steps, double gamma_d, void* stream) {
+                void* sigma_out, void* xs, void* ys, void* sched,
+                const void* active, void* lanes, int m, int n, int B,
+                int n_steps, double gamma_d, void* stream) {
   T gamma = (T)gamma_d;
   void* args[] = {(void*)&K,       (void*)&Ka,       (void*)&b,
                   (void*)&c,       (void*)&lb,       (void*)&ub,
@@ -215,8 +248,9 @@ int fused_dense(const void* K, const void* Ka, const void* b, const void* c,
                   (void*)&x_prev,  (void*)&x_bar,    (void*)&y,
                   (void*)&tau_in,  (void*)&sigma_in, (void*)&tau_out,
                   (void*)&sigma_out, (void*)&xs,     (void*)&ys,
-                  (void*)&sched,   (void*)&m,        (void*)&n,
-                  (void*)&B,       (void*)&n_steps,  (void*)&gamma};
+                  (void*)&sched,   (void*)&active,   (void*)&lanes,
+                  (void*)&m,       (void*)&n,        (void*)&B,
+                  (void*)&n_steps, (void*)&gamma};
   if (!pdhg::rows_fit_int(B, m, n) || !pdhg::schedule_fits_int(B, n_steps))
     return (int)cudaErrorInvalidValue;
   // one warp per row of the longer phase
@@ -224,6 +258,90 @@ int fused_dense(const void* K, const void* Ka, const void* b, const void* c,
   return (int)launch_cooperative((const void*)fused_dense_kernel<T>,
                                  pdhg::blocks_for_rows(rows, 1), args,
                                  stream);
+}
+
+// The transpose form's variant for n (and K's alignment): 2 the ring of
+// 16-byte chunks, 1 the ring of single elements, 0 the wide form.
+template <typename T>
+int dense_t_mode(int n, bool aligned) {
+  const bool vec = aligned && ((long long)n * sizeof(T)) % 16 == 0;
+  if (vec && n <= pdhg::kt_ring_cols<T, true>()) return 2;
+  if (n <= pdhg::kt_ring_cols<T, false>()) return 1;
+  return 0;
+}
+
+template <typename T>
+const void* dense_t_kernel(int mode) {
+  return mode == 2   ? (const void*)fused_dense_t_kernel<T, true, true>
+         : mode == 1 ? (const void*)fused_dense_t_kernel<T, true, false>
+                     : (const void*)fused_dense_t_kernel<T, false, false>;
+}
+
+// Dynamic shared memory of the form: x_bar and the ring's stages, ring
+// only.  The kernel is allowed that much first (above 48 KB it must be
+// asked).
+template <typename T>
+cudaError_t dense_t_smem(int mode, int n, size_t* smem) {
+  *smem = mode ? (size_t)(1 + pdhg::kt_stages<T>(n)) *
+                     pdhg::kt_stage_len<T>(n) * sizeof(T)
+               : 0;
+  return cudaFuncSetAttribute(dense_t_kernel<T>(mode),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+template <typename T>
+int fused_dense_t(const void* K, const void* b, const void* c,
+                  const void* lb, const void* ub, const void* Tp,
+                  const void* S, void* x, void* x_prev, void* x_bar, void* y,
+                  const void* tau_in, const void* sigma_in, void* tau_out,
+                  void* sigma_out, void* xs, void* ys, void* sched,
+                  void* part, const void* active, void* lanes, int slots,
+                  int m, int n, int B, int n_steps, double gamma_d,
+                  void* stream) {
+  T gamma = (T)gamma_d;
+  void* args[] = {(void*)&K,       (void*)&b,        (void*)&c,
+                  (void*)&lb,      (void*)&ub,       (void*)&Tp,
+                  (void*)&S,       (void*)&x,        (void*)&x_prev,
+                  (void*)&x_bar,   (void*)&y,        (void*)&tau_in,
+                  (void*)&sigma_in, (void*)&tau_out, (void*)&sigma_out,
+                  (void*)&xs,      (void*)&ys,       (void*)&sched,
+                  (void*)&part,    (void*)&active,   (void*)&lanes,
+                  (void*)&m,       (void*)&n,        (void*)&B,
+                  (void*)&n_steps, (void*)&gamma};
+  if (m < 1 || n < 1 || slots < B || !pdhg::rows_fit_int(B, m, n) ||
+      !pdhg::schedule_fits_int(B, n_steps) ||
+      (long long)slots * n >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int mode = dense_t_mode<T>(n, (uintptr_t)K % 16 == 0);
+  const void* kernel = dense_t_kernel<T>(mode);
+  size_t smem = 0;
+  cudaError_t e = dense_t_smem<T>(mode, n, &smem);
+  if (e != cudaSuccess) return (int)e;
+  // at most `slots` blocks: part holds a partial for each unit
+  int grid = 0;
+  e = pdhg::cooperative_grid(kernel, slots, &grid, pdhg::kKtThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(pdhg::kKtThreads),
+                                  args, smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[0..5) = registers, local (spill) bytes, resident blocks an SM,
+// dynamic shared memory bytes and the form (2, 1, 0 as dense_t_mode) of
+// the transpose form at row length n, on a 16-byte aligned K.
+template <typename T>
+int fused_dense_t_attrs(int n, int* out) {
+  const int mode = dense_t_mode<T>(n, true);
+  size_t smem = 0;
+  cudaError_t e = dense_t_smem<T>(mode, n, &smem);
+  if (e != cudaSuccess) return (int)e;
+  e = pdhg::kernel_attrs(dense_t_kernel<T>(mode), out, pdhg::kKtThreads,
+                         smem);
+  out[3] = (int)smem;
+  out[4] = mode;
+  return (int)e;
 }
 
 template <typename T>
@@ -313,11 +431,27 @@ int pdhg_primal_update_f64(const void* x, const void* kty, const void* c,
       const void* lb, const void* ub, const void* Tp, const void* S,         \
       void* x, void* x_prev, void* x_bar, void* y, const void* tau_in,       \
       const void* sigma_in, void* tau_out, void* sigma_out, void* xs,        \
-      void* ys, void* sched, int m, int n, int B, int n_steps, double gamma, \
-      void* stream) {                                                        \
+      void* ys, void* sched, const void* active, void* lanes, int m, int n,  \
+      int B, int n_steps, double gamma, void* stream) {                      \
     return fused_dense<T>(K, Ka, b, c, lb, ub, Tp, S, x, x_prev, x_bar, y,   \
                           tau_in, sigma_in, tau_out, sigma_out, xs, ys,      \
-                          sched, m, n, B, n_steps, gamma, stream);           \
+                          sched, active, lanes, m, n, B, n_steps, gamma,     \
+                          stream);                                           \
+  }                                                                          \
+  int pdhg_fused_dense_t_##SUFFIX(                                           \
+      const void* K, const void* b, const void* c, const void* lb,           \
+      const void* ub, const void* Tp, const void* S, void* x, void* x_prev,  \
+      void* x_bar, void* y, const void* tau_in, const void* sigma_in,        \
+      void* tau_out, void* sigma_out, void* xs, void* ys, void* sched,       \
+      void* part, const void* active, void* lanes, int slots, int m, int n,  \
+      int B, int n_steps, double gamma, void* stream) {                      \
+    return fused_dense_t<T>(K, b, c, lb, ub, Tp, S, x, x_prev, x_bar, y,     \
+                            tau_in, sigma_in, tau_out, sigma_out, xs, ys,    \
+                            sched, part, active, lanes, slots, m, n, B,      \
+                            n_steps, gamma, stream);                         \
+  }                                                                          \
+  int pdhg_fused_dense_t_attrs_##SUFFIX(int n, int* out) {                   \
+    return fused_dense_t_attrs<T>(n, out);                                   \
   }
 PDHG_FUSED_DENSE(f32, float)
 PDHG_FUSED_DENSE(f64, double)

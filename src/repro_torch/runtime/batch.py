@@ -385,7 +385,7 @@ class BucketPipeline:
         del M
         x0 = torch.clamp(draws.x0, lbs, ubs)
         x, y, its, merit, windows = yield from engine.solve_core(
-            Ks, Ks.transpose(-2, -1), bs, cs, lbs, ubs, T, Sigma, rho,
+            Ks, None, bs, cs, lbs, ubs, T, Sigma, rho,
             draws.noise, self.static, x0=x0, y0=draws.y0, read=read)
         return (D2 * x, D1 * y, its, merit, rho_raw), windows
 

@@ -93,17 +93,22 @@ def _window(seed, m, n, dtype=np.float64):
                 x_bar=x.copy(), y=vec(m), tau=dtype(0.3), sigma=dtype(0.3))
 
 
-@pytest.mark.parametrize("gamma", [0.0, 0.05])
-def test_plain_fused_dense_steps_matches_pallas(x64, gamma):
+# the two-matrix form (K_adj given) and the transpose form (K_adj=None,
+# the adjoint being K^T) against the reference's kernel on (K, K.T)
+@pytest.mark.parametrize("gamma,transpose", [(0.0, False), (0.05, False),
+                                             (0.0, True), (0.05, True)],
+                         ids=["0.0", "0.05", "kt-0.0", "kt-0.05"])
+def test_plain_fused_dense_steps_matches_pallas(x64, gamma, transpose):
     pytest.importorskip("jax")
     from repro.kernels import pdhg_megakernel as rmk
 
     w = _window(7, 7, 11)
     ref = rmk.fused_dense_steps(**w, n_steps=16, gamma=gamma,
                                 interpret=True)
-    port = tmk.fused_dense_steps_plain(
-        **{k: torch.as_tensor(v) for k, v in w.items()},
-        n_steps=16, gamma=gamma)
+    t = {k: torch.as_tensor(v) for k, v in w.items()}
+    if transpose:
+        t["K_adj"] = None
+    port = tmk.fused_dense_steps_plain(**t, n_steps=16, gamma=gamma)
     assert len(port) == len(ref) == 8
     for p, r in zip(port, ref):
         _close(p, r, 1e-12)
@@ -128,7 +133,8 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
                                        "fused_dense_steps": 0,
                                        "ell_matvec": 0,
                                        "fused_ell_steps": 0,
-                                       "crossbar_mvm": 0}
+                                       "crossbar_mvm": 0,
+                                       "fused_dense_steps_kt": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -208,7 +214,8 @@ def test_update_kernels_match_plain_on_card(cuda, dtype, tol, d):
                                        "fused_dense_steps": 0,
                                        "ell_matvec": 0,
                                        "fused_ell_steps": 0,
-                                       "crossbar_mvm": 0}
+                                       "crossbar_mvm": 0,
+                                       "fused_dense_steps_kt": 0}
 
 
 @pytest.mark.cuda
