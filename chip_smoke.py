@@ -14,7 +14,9 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   f64 and f32, at a ragged size and at the main path's shape (B6 also
+   f64 and f32, at a ragged size and at the main path's shape (B1 and B2
+   also in their step forms, with the window's schedule, and a stepped
+   window of 100 steps timed eagerly and as a CUDA graph; B6 also
    with a batch of 3 and with zero padding; B4 and B5 also with a batch
    of 3 and at width 0, each with and without row lengths, B4 also with
    a strided v and v[0] = inf, B5 also with half its lanes masked off;
@@ -24,30 +26,37 @@ Phases, in order; any failure raises and exits non-zero:
    the plain version and a yardstick; B4's, B5's and B3's transpose
    form's registers and resident blocks an SM;
 4. the dense path: the CLI default (``gen-ip002``), then the full-width
-   dense instance solved twice, stepped (B1/B2 every step) and with the
+   dense instance solved three times: stepped as a CUDA graph a window
+   (the schedule once a window, B1's and B2's step forms every step),
+   the same with every window eager (``engine.solve_core(...,
+   graph=False)``: the same iterations, ``x`` bit for bit, the same
+   launches, each counted where it launches), and with the
    check-window megakernel (B3's transpose form every window, its
-   two-matrix form never).  Both must reach ``optimal`` on the same
+   two-matrix form never).  All must reach ``optimal`` on the same
    iteration count, with the launch counters showing each kernel on its
    path;
 5. the crossbar paths: the CLI's ``--backend taox`` and ``--backend
    epiram --refine-rounds 2`` and the host driver on the crossbar
    simulation with B6 (``gen-ip002``, each within the paper's 5e-2
    objective band); then at full width, TaOx-HfOx in f64, the host
-   driver with B6 on every MVM, the same driver for 200 iterations with
+   driver with B6 on every MVM (B1 and B2 every step: the host driver
+   steps ``engine.pdhg_step``), the same driver for 200 iterations with
    and without B6 (the two ``x`` within 1e-9), ``solve_crossbar_jit``,
    and ``solve_crossbar_jit`` on a noiseless TaOx-HfOx stepped and with
    the megakernel (B3's two-matrix form on the programmed blocks every
    window; the two on the same iteration count, ``x`` within 1e-8).
    Each path's launch counts are read on their own;
 6. the small batch streams through the CLI (``--backend batch``: dense
-   stepped and with ``--megakernel``, ``--sparse``, and ``--device taox
-   --kernel cuda`` with B6 batched);
+   stepped, as a graph and eagerly, and with ``--megakernel``,
+   ``--sparse``, and ``--device taox --kernel cuda`` with B6 batched);
 7. the full-width sparse stream (16 MIPLIB-2017-class LP relaxations in
    two ELL width buckets: (64, 32) with 16 lanes, 12 real and 4 filler,
    and (64, 64) with 4) through ``BatchSolver``: stepped (B4 on every
-   MVM, B1/B2 every step), then with the megakernel (B5 every window),
-   the same iterations and ``x`` within 1e-8, every launch counted, and
-   a warm pass that builds nothing.
+   MVM, the step forms every step, a CUDA graph a window on each
+   bucket's stream), the same eagerly (the same iterations, ``x`` bit
+   for bit, the same launches), then with the megakernel (B5 every
+   window), the same iterations and ``x`` within 1e-8, every launch
+   counted, and a warm pass that builds nothing.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -56,6 +65,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from functools import partial
@@ -88,6 +98,8 @@ PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
 # relative tolerances, kernel against plain version on the same inputs,
 # each output's error over that output's own largest |value|
 #  B1/B2: one elementwise pass; FMA contraction is the only difference
+#         (their step forms too; the schedule: theta's 1 + 2 gamma tau
+#         may be contracted)
 #  B3:    100 steps; the dot products sum in another order than cuBLAS
 #  B6:    one row sum of up to 11520 terms, warp-strided in the kernel
 #         and in cuBLAS's order in the plain version
@@ -105,11 +117,15 @@ TOLS = {
     ("fused_ell_steps", "float64"): 1e-12,
     ("fused_ell_steps", "float32"): 1e-5,
     ("crossbar_mvm", "float64"): 1e-13, ("crossbar_mvm", "float32"): 1e-5,
+    ("dual_step", "float64"): 1e-14, ("dual_step", "float32"): 1e-6,
+    ("primal_step", "float64"): 1e-14, ("primal_step", "float32"): 1e-6,
+    ("schedule", "float64"): 1e-14, ("schedule", "float32"): 1e-6,
 }
 
 KERNEL_NAMES = ("dual_update", "primal_update", "fused_dense_steps",
                 "ell_matvec", "fused_ell_steps", "crossbar_mvm",
-                "fused_dense_steps_kt")
+                "fused_dense_steps_kt", "schedule", "dual_step",
+                "primal_step")
 SOURCES = {
     "dual_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "primal_update": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
@@ -118,7 +134,13 @@ SOURCES = {
     "fused_ell_steps": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
     "crossbar_mvm": "src/repro_torch/kernels/csrc/crossbar_mvm.cu",
     "fused_dense_steps_kt": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "schedule": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "dual_step": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
+    "primal_step": "src/repro_torch/kernels/csrc/pdhg_kernels.cu",
 }
+# the step forms are B1's and B2's redesign for the stepped window; the
+# schedule is the third launch of that design (the step sizes B2 reads),
+# which the reference computes in XLA inside its while_loop
 REPLACES = {
     "dual_update": "src/repro/kernels/pdhg_update.py:45",
     "primal_update": "src/repro/kernels/pdhg_update.py:34",
@@ -127,6 +149,9 @@ REPLACES = {
     "fused_ell_steps": "src/repro/kernels/pdhg_megakernel.py:95",
     "crossbar_mvm": "src/repro/kernels/crossbar_mvm.py:41",
     "fused_dense_steps_kt": "src/repro/kernels/pdhg_megakernel.py:74",
+    "schedule": "src/repro/kernels/pdhg_update.py:34",
+    "dual_step": "src/repro/kernels/pdhg_update.py:45",
+    "primal_step": "src/repro/kernels/pdhg_update.py:34",
 }
 
 # the full-width sparse stream: the reference's SPARSE_STREAM_SHAPES
@@ -303,6 +328,14 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
 
     g = torch.Generator(device="cuda").manual_seed(1234)
     rows = {}
+
+    def held(name, dname, shape, outs, refs, tag):
+        err, rel = max_err(outs, refs)
+        rows.setdefault(name, []).append(dict(
+            dtype=dname, shape=shape, max_abs_err=err, rel_err=rel))
+        check(rel <= TOLS[(name, dname)],
+              f"{name} {dname} {tag}: rel err {rel:.3e}")
+
     for dt in (torch.float64, torch.float32):
         dname = str(dt).split(".")[1]
         size = torch.finfo(dt).bits // 8
@@ -348,6 +381,68 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                     plain_ms=cuda_ms(plain, inner=100, queued=True),
                     library_ms=None,
                     bound=bound_ms((8 * n + 2) * size, 9 * n, dname))
+            # the stepped window's forms: the schedule of a window, then
+            # B1's and B2's step forms on a slot of it, the sums folded in
+            sigma0 = _scalar(0.29, dt)
+            sched = upd.schedule(tau, sigma0, steps, 0.05)
+            held("schedule", dname, [steps], sched,
+                 upd.schedule_plain(tau, sigma0, steps, 0.05), tag)
+            ys = _vec(g, m, dt)
+            ys_k, ys_p = ys.clone(), ys.clone()
+            out = upd.dual_step(y, kx, b, S, sched[0][1, 7], ys_k)
+            ref = upd.dual_step_plain(y, kx, b, S, sched[0][1, 7], ys_p)
+            held("dual_step", dname, [m], [out, ys_k], [ref, ys_p], tag)
+            check(torch.equal(ys_k, ys + out),
+                  f"dual_step {dname} {tag}: the sum is not ys + y'")
+            xs = _vec(g, n, dt)
+            xs_k, xs_p = xs.clone(), xs.clone()
+            outs = upd.primal_step(x, kty, c, T, lb, ub, sched[0][0, 7],
+                                   sched[0][2, 7], xs_k)
+            refs = upd.primal_step_plain(x, kty, c, T, lb, ub,
+                                         sched[0][0, 7], sched[0][2, 7],
+                                         xs_p)
+            held("primal_step", dname, [n], [*outs, xs_k], [*refs, xs_p],
+                 tag)
+            check(torch.equal(xs_k, xs + outs[0]),
+                  f"primal_step {dname} {tag}: the sum is not xs + x'")
+            if tag == "main":
+                bufs = upd.schedule_buffers(tau, steps)
+                y_out, x_new, x_bar = (torch.empty_like(y),
+                                       torch.empty_like(x),
+                                       torch.empty_like(x))
+                timed = {
+                    # reads tau, sigma; writes the schedule, tau, sigma
+                    "schedule": (
+                        partial(upd.schedule, tau, sigma0, steps, 0.05,
+                                bufs),
+                        partial(upd.schedule_plain, tau, sigma0, steps,
+                                0.05, bufs),
+                        bound_ms((3 * steps + 4) * size, 7 * steps, dname)),
+                    # reads y, Kx, b, Sigma, the y sum and sigma; writes
+                    # y' and the y sum
+                    "dual_step": (
+                        partial(upd.dual_step, y, kx, b, S, sched[0][1, 7],
+                                ys_k, y_out),
+                        partial(upd.dual_step_plain, y, kx, b, S,
+                                sched[0][1, 7], ys_p, y_out),
+                        bound_ms((7 * m + 1) * size, 5 * m, dname)),
+                    # reads x, K^T y, c, T, lb, ub, the x sum, tau, theta;
+                    # writes x', x_bar and the x sum
+                    "primal_step": (
+                        partial(upd.primal_step, x, kty, c, T, lb, ub,
+                                sched[0][0, 7], sched[0][2, 7], xs_k, x_new,
+                                x_bar),
+                        partial(upd.primal_step_plain, x, kty, c, T, lb, ub,
+                                sched[0][0, 7], sched[0][2, 7], xs_p, x_new,
+                                x_bar),
+                        bound_ms((10 * n + 2) * size, 10 * n, dname)),
+                }
+                for name, (call, plain, bound) in timed.items():
+                    rows[name][-1].update(
+                        ms=cuda_ms(call, inner=100, queued=True),
+                        call_ms=cuda_ms(call, inner=100),
+                        plain_ms=cuda_ms(plain, inner=100, queued=True),
+                        library_ms=None, bound=bound)
             # B3 check window, both forms, with and without the theta
             # schedule: the two-matrix form on K and a contiguous K^T, the
             # transpose form on K alone
@@ -396,6 +491,28 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                 vecs = (3 * m + 6 * n + 2) + (4 * n + 2 * m + 2)
                 ops = steps * (4 * m * n + 4 * m + 9 * n)
                 yard, gemv = cuda_ms(stepped), cuda_ms(gemvs)
+                # the stepped window of the loop: its schedule and step
+                # pair a step around the GEMVs, every launch from the host
+                # and as one CUDA graph; both give the same bits
+                xs0, ys0 = torch.zeros_like(w["x"]), torch.zeros_like(w["y"])
+                wins = {cap: engine.SteppedWindow(
+                    op, engine.CUDA_UPDATES, *vec_args, 0.05, steps, w["x"],
+                    w["y"], capture=cap) for cap in (False, True)}
+                runs = {}
+                for cap, win in wins.items():
+                    for _ in range(3):       # eager, captured, replayed
+                        s1, xs1, ys1 = win.run(state0, xs0, ys0)
+                    runs[cap] = [t.clone() for t in (*s1, xs1, ys1)]
+                check(all(torch.equal(a, b)
+                          for a, b in zip(runs[False], runs[True])),
+                      f"stepped window {dname}: the graph's replay differs "
+                      f"from the eager window")
+                window_ms = {cap: cuda_ms(partial(win.run, state0, xs0, ys0))
+                             for cap, win in wins.items()}
+                rows["dual_step"][-1].update(
+                    window_eager_ms=window_ms[False],
+                    window_graph_ms=window_ms[True],
+                    window_pdhg_step_ms=yard, window_gemv_ms=gemv)
                 times = {}
                 # in turns, to share the card's state: two, kt, kt, two
                 for name, wf in forms + forms[::-1]:
@@ -425,6 +542,11 @@ def phase_kernels(m_main: int, n_main: int, steps: int):
                      if "ms" in r else "")
                   + (f" call_ms={r['call_ms']:.6f}" if "call_ms" in r
                      else "")
+                  + (f" window_eager_ms={r['window_eager_ms']:.6f}"
+                     f" window_graph_ms={r['window_graph_ms']:.6f}"
+                     f" window_pdhg_step_ms={r['window_pdhg_step_ms']:.6f}"
+                     f" window_gemv_ms={r['window_gemv_ms']:.6f}"
+                     if "window_eager_ms" in r else "")
                   + (f" yardstick_ms={r['yardstick_ms']:.6f}"
                      f" gemv_ms={r['gemv_ms']:.6f}"
                      f" reread_floor_ms={r['reread_floor_ms']:.6f}"
@@ -596,40 +718,80 @@ def _timed(fn):
 
 
 def _run(label, fn):
+    import torch
+
+    before = torch.cuda.memory_allocated()
     res, wall, peak = _timed(fn)
     print(f"main {label}: status={res.status} iterations={res.iterations} "
           f"merit={res.merit:.3e} wall_s={wall:.3f} "
-          f"max_memory_allocated={peak}", flush=True)
+          f"max_memory_allocated={peak} retained_bytes="
+          f"{torch.cuda.memory_allocated() - before}", flush=True)
     return res, wall
 
 
 def _counted(fn):
-    """Run ``fn`` with every launch count set to 0 just before it; return
-    its result and the counts read just after."""
+    """Run ``fn`` with every launch count (and the CUDA-graph counts of
+    ``engine.GRAPHS``) set to 0 just before it; return its result and
+    the launch counts read just after."""
     from repro_torch import kernels
+    from repro_torch.core import engine
 
     kernels.reset_launch_counts()
+    engine.GRAPHS.update(captures=0, replays=0)
     out = fn()
     return out, kernels.launch_counts()
+
+
+def stepped_launches(iterations: int, **more) -> dict:
+    """The launches of a stepped solve of ``iterations`` steps in windows
+    of ``CHECK_EVERY``: B1's and B2's step forms every step and the
+    schedule every window."""
+    return launches(dual_step=iterations, primal_step=iterations,
+                    schedule=iterations // CHECK_EVERY, **more)
+
+
+@contextlib.contextmanager
+def eager_windows():
+    """Every stepped window inside runs eagerly: the entry points reach
+    ``engine.pdhg_loop`` through ``engine.solve_core``, whose ``graph``
+    switch this sets to False.  Each launch is then counted where it
+    launches, not added by a replay."""
+    from repro_torch.core import engine
+
+    core = engine.solve_core
+    engine.solve_core = partial(core, graph=False)
+    try:
+        yield
+    finally:
+        engine.solve_core = core
+
+
+def graphs() -> dict:
+    from repro_torch.core import engine
+
+    return dict(engine.GRAPHS)
 
 
 def phase_main(instance: str):
     """The port's main path through its entry points; returns each
     path's own launch counts."""
+    import numpy as np
+
     from repro_torch.core import engine
     from repro_torch.core.pdhg import PDHGOptions, solve_jit
     from repro_torch.launch import solve as cli
 
-    # the CLI default: gen-ip002, stepped, CUDA update kernels
+    # the CLI default: gen-ip002, stepped, CUDA update kernels, a CUDA
+    # graph a window
     (res0, _), cli_counts = _counted(lambda: _run(
         "cli gen-ip002", lambda: cli.main(["--instance", "gen-ip002"])))
     lp0 = cli.load_instance("gen-ip002")
     rel0 = abs(res0.obj - lp0.obj_opt) / abs(lp0.obj_opt)
-    print(f"main cli gen-ip002: launches={cli_counts}", flush=True)
+    print(f"main cli gen-ip002: launches={cli_counts} graphs={graphs()}",
+          flush=True)
     check(res0.status == "optimal" and rel0 <= 1e-4,
           f"gen-ip002: {res0.status}, rel err {rel0:.3e}")
-    want0 = launches(dual_update=res0.iterations,
-                     primal_update=res0.iterations)
+    want0 = stepped_launches(res0.iterations)
     check(cli_counts == want0,
           f"gen-ip002 launches {cli_counts}, expected {want0}")
     counts = {"cli gen-ip002": cli_counts}
@@ -640,16 +802,22 @@ def phase_main(instance: str):
           flush=True)
     opts = PDHGOptions(max_iters=MAX_ITERS, tol=TOL,
                        check_every=CHECK_EVERY)
+    mega = dataclasses.replace(opts, megakernel=True)
     results = {}
-    for label, o in (("stepped", opts),
-                     ("megakernel", dataclasses.replace(opts,
-                                                        megakernel=True))):
-        (res, wall), delta = _counted(lambda: _run(
-            f"{instance} {label}", lambda: solve_jit(lp, o)))
+    # stepped as a CUDA graph a window (the default), stepped with every
+    # window eager (the comparison's switch), megakernel
+    for label, o, ctx in (("stepped", opts, contextlib.nullcontext),
+                          ("stepped eager", opts, eager_windows),
+                          ("megakernel", mega, contextlib.nullcontext)):
+        with ctx():
+            (res, wall), delta = _counted(lambda: _run(
+                f"{instance} {label}", lambda: solve_jit(lp, o)))
+        g = graphs()
         rel = abs(res.obj - lp.obj_opt) / abs(lp.obj_opt)
         print(f"main {instance} {label}: objective={res.obj:.9f} "
               f"known={lp.obj_opt:.9f} rel_err={rel:.3e} "
-              f"mvm_calls={res.mvm_calls} launches={delta}", flush=True)
+              f"mvm_calls={res.mvm_calls} launches={delta} graphs={g}",
+              flush=True)
         check(res.status == "optimal" and rel <= 1e-4,
               f"{instance} {label}: {res.status}, rel err {rel:.3e}")
         check(res.mvm_calls == engine.mvm_accounting(
@@ -658,18 +826,30 @@ def phase_main(instance: str):
         windows = res.iterations // CHECK_EVERY
         # the megakernel solve builds its adjoint as K's transpose: B3's
         # transpose form once a window, its two-matrix form never
-        want = (launches(dual_update=res.iterations,
-                         primal_update=res.iterations)
-                if label == "stepped" else
-                launches(fused_dense_steps_kt=windows))
+        want = (launches(fused_dense_steps_kt=windows)
+                if label == "megakernel" else
+                stepped_launches(res.iterations))
         check(delta == want, f"{instance} {label}: launches {delta}, "
                              f"expected {want}")
+        # the first window runs eagerly, the second is captured, and
+        # every window from it on is a replay
+        want_g = ({"captures": 1, "replays": windows - 1}
+                  if label == "stepped" else {"captures": 0, "replays": 0})
+        check(g == want_g, f"{instance} {label}: graphs {g}, expected "
+                           f"{want_g}")
         results[label] = (res, wall)
         counts[label] = delta
-    (ra, _), (rb, _) = results["stepped"], results["megakernel"]
+    (ra, _), (re, _), (rb, _) = (results["stepped"],
+                                 results["stepped eager"],
+                                 results["megakernel"])
+    check(ra.iterations == re.iterations and np.array_equal(ra.x, re.x)
+          and np.array_equal(ra.y, re.y),
+          f"graph and eager stepped solves differ: {ra.iterations} vs "
+          f"{re.iterations} iterations, max|dx|="
+          f"{float(abs(ra.x - re.x).max()):.3e}")
     dx = float(abs(ra.x - rb.x).max())
-    print(f"main {instance}: stepped vs megakernel max|dx|={dx:.3e}",
-          flush=True)
+    print(f"main {instance}: stepped graph vs eager x bit-identical, "
+          f"stepped vs megakernel max|dx|={dx:.3e}", flush=True)
     check(ra.iterations == rb.iterations,
           f"iterations differ: {ra.iterations} vs {rb.iterations}")
     check(dx <= 1e-8, f"x differs by {dx:.3e}")
@@ -708,7 +888,8 @@ def phase_crossbar(instance: str):
               f"{label}: rel err {rel:.3e} outside {OBJ_BAND}")
 
     # the CLI's crossbar backends: solve_crossbar_jit on decoded
-    # conductances, B1/B2 every step and no B6
+    # conductances, the step pair every step (eager: read noise) and no
+    # B6
     for label, args in (
             ("cli taox", ["--backend", "taox"]),
             ("cli epiram refine", ["--backend", "epiram",
@@ -721,9 +902,10 @@ def phase_crossbar(instance: str):
               f"mvm_calls={res.mvm_calls} wall_s={wall:.3f} "
               f"max_memory_allocated={peak} launches={delta}", flush=True)
         band(label, res)
-        want = launches(dual_update=res.iterations,
-                        primal_update=res.iterations)
+        want = stepped_launches(res.iterations)
         check(delta == want, f"{label}: launches {delta}, expected {want}")
+        check(graphs()["captures"] == 0,
+              f"{label}: a noisy window was captured")
         counts[label] = delta
 
     def host(label, lp, iters, use_kernel, stamps=None):
@@ -790,9 +972,9 @@ def phase_crossbar(instance: str):
           f"jit full: cells_written {led.cells_written} != 2*{dim}^2")
     check(led.mvm_count == r.mvm_calls and np.isfinite(r.merit),
           f"jit full: mvm_count {led.mvm_count}, mvm_calls {r.mvm_calls}")
-    check(delta == launches(dual_update=r.iterations,
-                            primal_update=r.iterations),
-          f"jit full: launches {delta}")
+    check(delta == stepped_launches(r.iterations)
+          and graphs()["captures"] == 0, f"jit full: launches {delta}, "
+                                         f"graphs {graphs()}")
     counts["jit full"] = delta
     # (d) the same on a noiseless device, stepped and with the megakernel:
     # the decoded blocks K_fwd and K_adj are distinct cells, so B3 runs
@@ -817,9 +999,13 @@ def phase_crossbar(instance: str):
               f"{label}: mvm_count {led.mvm_count}, mvm_calls "
               f"{r.mvm_calls}, merit {r.merit:.3e}")
         want = (launches(fused_dense_steps=r.iterations // CHECK_EVERY)
-                if mega else launches(dual_update=r.iterations,
-                                      primal_update=r.iterations))
+                if mega else stepped_launches(r.iterations))
         check(delta == want, f"{label}: launches {delta}, expected {want}")
+        # noiseless, so the stepped windows run as a CUDA graph
+        want_g = {"captures": 0 if mega else 1,
+                  "replays": 0 if mega else r.iterations // CHECK_EVERY - 1}
+        check(graphs() == want_g, f"{label}: graphs {graphs()}, expected "
+                                  f"{want_g}")
         counts[label] = delta
         twins[mega] = (r, led)
     (ra, la), (rb, lb) = twins[False], twins[True]
@@ -1239,6 +1425,8 @@ def phase_ell_kernels(bucket, steps: int):
 def phase_small_streams():
     """The reference's small batch streams through the port's CLI; each
     path's launch counts are read on their own."""
+    import numpy as np
+
     from repro_torch.launch import solve as cli
 
     counts = {}
@@ -1262,16 +1450,28 @@ def phase_small_streams():
 
     out, d = run("small dense", ["--instances", SMALL_DENSE])
     exact("small dense", out)
-    check(d["dual_update"] == d["primal_update"] > 0
-          and d["dual_update"] % CHECK_EVERY == 0
+    check(d["dual_step"] == d["primal_step"] > 0
+          and d["dual_step"] == CHECK_EVERY * d["schedule"]
+          and d["dual_update"] == d["primal_update"] == 0
           and d["fused_dense_steps"] == d["ell_matvec"] == 0
           and d["fused_dense_steps_kt"] == 0,
           f"small dense: launches {d}")
+    check(graphs()["captures"] > 0, f"small dense: graphs {graphs()}")
+    # the same stream with every window eager: the same launches, each
+    # counted where it launches, and the same bits
+    with eager_windows():
+        out_e, d_e = run("small dense eager", ["--instances", SMALL_DENSE])
+    check(graphs() == {"captures": 0, "replays": 0},
+          f"small dense eager: graphs {graphs()}")
+    check(d_e == d, f"small dense: launches {d} as a graph, {d_e} eager")
+    check([r.iterations for r in out_e] == [r.iterations for r in out]
+          and all(np.array_equal(a.x, b.x) for a, b in zip(out_e, out)),
+          "small dense: graph and eager solves differ")
     out, d = run("small dense megakernel",
                  ["--instances", SMALL_DENSE, "--megakernel"])
     exact("small dense megakernel", out)
     check(d["fused_dense_steps_kt"] > 0 and d["fused_dense_steps"] == 0
-          and d["dual_update"] == 0,
+          and d["dual_update"] == d["dual_step"] == d["schedule"] == 0,
           f"small dense megakernel: launches {d}")
     sp_specs = SMALL_SPARSE.split(",")
     sp_lps = [cli.load_instance(s, seed=i) for i, s in enumerate(sp_specs)]
@@ -1284,8 +1484,10 @@ def phase_small_streams():
         rel = abs(r.obj - lp.obj_opt) / abs(lp.obj_opt)
         check(r.status == "optimal" and rel <= 1e-4,
               f"small sparse {lp.name}: {r.status}, rel err {rel:.3e}")
-    check(d["ell_matvec"] > 0 and d["dual_update"] > 0
-          and d["fused_ell_steps"] == 0, f"small sparse: launches {d}")
+    check(d["ell_matvec"] > 0 and d["dual_step"] > 0
+          and d["dual_step"] == CHECK_EVERY * d["schedule"]
+          and d["fused_ell_steps"] == d["dual_update"] == 0,
+          f"small sparse: launches {d}")
     # with two refinement rounds: without them rand:10x18's read-noise
     # floor straddles the 5e-2 band (3e-2 to 7e-2 over eight seeds on the
     # CPU, 4.6e-2 in the reference; PERF.md), and the refined batched path
@@ -1302,8 +1504,8 @@ def phase_small_streams():
               flush=True)
         check(rel <= OBJ_BAND, f"small taox {lp.name}: rel err {rel:.3e} "
                                f"outside {OBJ_BAND}")
-    check(d["crossbar_mvm"] > 0 and d["dual_update"] > 0,
-          f"small taox: launches {d}")
+    check(d["crossbar_mvm"] > 0 and d["dual_step"] > 0
+          and d["dual_update"] == 0, f"small taox: launches {d}")
     return counts
 
 
@@ -1316,8 +1518,8 @@ def _stream_run(label, solver, lps):
     windows = [(b["bucket"][1], b["lanes"], b["windows"])
                for b in st["bucket_windows"]]
     print(f"stream {label}: wall_s={wall:.3f} max_memory_allocated={peak} "
-          f"compiles={st['compiles']} windows={windows} launches={delta}",
-          flush=True)
+          f"compiles={st['compiles']} windows={windows} launches={delta} "
+          f"graphs={graphs()}", flush=True)
     print(f"stream {label}: stream: buckets={st['n_buckets']} "
           f"dispatch={st['dispatch_s']:.3f}s "
           f"collect={st['collect_s']:.3f}s "
@@ -1340,11 +1542,14 @@ def phase_stream(lps, probe: bool = False):
           f"{sorted({lp.K.shape for lp in lps})}, nnz {min(nnz)}..."
           f"{max(nnz)}", flush=True)
     counts, results = {}, {}
-    for label, o in (("stream stepped", opts),
-                     ("stream megakernel",
-                      dataclasses.replace(opts, megakernel=True))):
+    for label, o, ctx in (
+            ("stream stepped", opts, contextlib.nullcontext),
+            ("stream stepped eager", opts, eager_windows),
+            ("stream megakernel", dataclasses.replace(opts, megakernel=True),
+             contextlib.nullcontext)):
         solver = BatchSolver(o)
-        res, delta, st, wall = _stream_run(label, solver, lps)
+        with ctx():
+            res, delta, st, wall = _stream_run(label, solver, lps)
         rels = [abs(r.obj - lp.obj_opt) / abs(lp.obj_opt)
                 for r, lp in zip(res, lps)]
         print(f"{label}: iterations={[r.iterations for r in res]} "
@@ -1361,16 +1566,30 @@ def phase_stream(lps, probe: bool = False):
         w = sum(b["windows"] for b in st["bucket_windows"])
         n_b = len(st["bucket_windows"])
         lanczos = 2 * opts.lanczos_iters * n_b
-        want = (launches(dual_update=w * CHECK_EVERY,
-                         primal_update=w * CHECK_EVERY,
-                         ell_matvec=lanczos + w * (2 * CHECK_EVERY + 4))
-                if label == "stream stepped" else
+        want = (stepped_launches(
+                    w * CHECK_EVERY,
+                    ell_matvec=lanczos + w * (2 * CHECK_EVERY + 4))
+                if label.startswith("stream stepped") else
                 launches(ell_matvec=lanczos + 4 * w, fused_ell_steps=w))
         check(delta == want, f"{label}: launches {delta}, expected {want}")
+        # each bucket's stepped loop: a capture on the bucket's stream
+        # at its second window, a replay every window from it on
+        want_g = ({"captures": n_b, "replays": w - n_b}
+                  if label == "stream stepped" else
+                  {"captures": 0, "replays": 0})
+        check(graphs() == want_g, f"{label}: graphs {graphs()}, expected "
+                                  f"{want_g}")
         counts[label] = delta
         results[label] = (res, solver)
-    (ra, solver), (rb, _) = (results["stream stepped"],
-                             results["stream megakernel"])
+    (ra, solver), (re, _), (rb, _) = (results["stream stepped"],
+                                      results["stream stepped eager"],
+                                      results["stream megakernel"])
+    check([a.iterations for a in ra] == [e.iterations for e in re]
+          and all(np.array_equal(a.x, e.x) for a, e in zip(ra, re))
+          and counts["stream stepped"] == counts["stream stepped eager"],
+          "stream: graph and eager stepped passes differ")
+    print("stream: stepped graph vs eager x bit-identical, same launches",
+          flush=True)
     dx = max(float(np.max(np.abs(a.x - b.x))) for a, b in zip(ra, rb))
     print(f"stream: stepped vs megakernel max|dx|={dx:.3e}", flush=True)
     check([a.iterations for a in ra] == [b.iterations for b in rb],
@@ -1383,11 +1602,17 @@ def phase_stream(lps, probe: bool = False):
     return counts
 
 
-# the full-width path on which each kernel's ``launches`` is read
-MAIN_PATH_OF = {"dual_update": "stepped", "primal_update": "stepped",
+# the full-width path on which each kernel's ``launches`` is read: the
+# stepped loop runs B1's and B2's step forms, and B1 and B2 themselves
+# run on the host driver, which steps ``engine.pdhg_step``; the stepped
+# loop's kernels are read from its eager run, where each launch is
+# counted where it launches (a replay adds the counts of its capture)
+MAIN_PATH_OF = {"dual_update": "host full", "primal_update": "host full",
+                "schedule": "stepped eager", "dual_step": "stepped eager",
+                "primal_step": "stepped eager",
                 "fused_dense_steps": "jit noiseless megakernel",
                 "fused_dense_steps_kt": "megakernel",
-                "ell_matvec": "stream stepped",
+                "ell_matvec": "stream stepped eager",
                 "fused_ell_steps": "stream megakernel",
                 "crossbar_mvm": "host full"}
 
@@ -1477,7 +1702,8 @@ def main() -> int:
               "adjoint_all_slots_ms", "adjoint_library_ms",
               "adjoint_nnz_bound_ms", "all_slots_bound_ms", "nnz",
               "adjoint_nnz", "half_masked_ms", "all_slots_reread_floor_ms",
-              "local_gather_ms", "ms_runs")
+              "local_gather_ms", "ms_runs", "window_eager_ms",
+              "window_graph_ms", "window_pdhg_step_ms", "window_gemv_ms")
     for name in KERNEL_NAMES:
         main_row = next(r for r in rows[name]
                         if r["dtype"] == "float64" and "ms" in r)

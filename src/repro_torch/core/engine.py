@@ -16,7 +16,18 @@ MVM accounting the energy ledger charges.  Two backend axes:
     simulation with its energy ledger, used by ``pdhg.solve``);
   * updates (``Updates``): the proximal vector algebra — plain PyTorch
     (``"torch"``) or the hand-written CUDA kernels (``"cuda"``, B1/B2;
-    on CPU tensors the kernels' plain versions run instead).
+    on CPU tensors the kernels' plain versions run instead), each with
+    the step forms the stepped window runs (``dual_step``,
+    ``primal_step`` and the window's ``schedule``).
+
+The stepped window (``pdhg_loop`` without a fuse hook) is the schedule
+and then four launches a step on the card: the forward product,
+``dual_step``, the adjoint product, ``primal_step``.  On a noiseless
+device operator (``Operator.capture``) the loop captures one window as a
+CUDA graph and replays it every window after the first, so the host
+issues one replay a window instead of every launch; ``pdhg_loop(...,
+graph=False)`` runs every window eagerly, for tests that compare the
+two.
 
 State is carried in the pre-extrapolated form of the reference:
 ``x_bar`` for iteration k is produced by iteration k-1's primal update,
@@ -41,6 +52,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import kernels
 from ..kernels import crossbar_mvm, pdhg_megakernel, pdhg_update, sparse_mvm
 from .residuals import kkt_residuals
 from .symblock import MODE_AX, MODE_ATY, matmul_accel
@@ -78,24 +90,37 @@ class Operator(NamedTuple):
     (state', x_sum, y_sum)`` is the optional megakernel hook, mounted
     only on noiseless backends; ``active`` is the loop's per-lane mask on
     the device, and a hook may leave the lanes it marks stopped as they
-    came in (the loop discards their results)."""
+    came in (the loop discards their results).  ``capture`` says that a
+    stepped window of the two products may be captured as a CUDA graph:
+    they are noiseless work on the device, with no draw from a generator
+    and nothing read on the host."""
 
     fwd: Callable
     adj: Callable
     name: str = "dense"
     fuse: Optional[Callable] = None
+    capture: bool = False
 
 
 class Updates(NamedTuple):
-    """The proximal vector algebra of one iteration.
+    """The proximal vector algebra of one iteration (``pdhg_step``), and
+    its step forms that the stepped window runs
+    (``kernels.pdhg_update``).
 
     primal(x, kty, c, T, lb, ub, tau, theta) -> (x_new, x_bar_next)
     dual(y, kxbar, b, Sigma, sigma)          -> y_new
+    schedule(tau, sigma, n_steps, gamma, out) -> (sched, tau', sigma')
+    dual_step(y, kxbar, b, Sigma, sigma, ys, out)   -> y_new; ys += y_new
+    primal_step(x, kty, c, T, lb, ub, tau, theta, xs, x_new, x_bar)
+                                              -> (x_new, x_bar); xs += x_new
     """
 
     primal: Callable
     dual: Callable
-    name: str = "torch"
+    name: str
+    schedule: Callable
+    dual_step: Callable
+    primal_step: Callable
 
 
 # ---------------------------------------------------- operator backends ---
@@ -133,7 +158,8 @@ def dense_operator(K_fwd, K_adj, sigma_read: float = 0.0,
     distinct cells.  With ``sigma_read > 0`` every MVM draws its read
     noise from ``generator`` (on the operands' device)."""
     return Operator(_noisy(matvec(K_fwd), sigma_read, generator),
-                    _noisy(matvec(K_adj), sigma_read, generator), "dense")
+                    _noisy(matvec(K_adj), sigma_read, generator), "dense",
+                    capture=sigma_read <= 0.0)
 
 
 def coo_matvec(data, row, col, v, shape) -> torch.Tensor:
@@ -165,7 +191,8 @@ def sparse_operator(K_sp, sigma_read: float = 0.0,
         return coo_matvec(vals, col, row, v, (*lead, n))
 
     return Operator(_noisy(fwd, sigma_read, generator),
-                    _noisy(adj, sigma_read, generator), "sparse")
+                    _noisy(adj, sigma_read, generator), "sparse",
+                    capture=sigma_read <= 0.0)
 
 
 def _row_lens(row_len, data, cols):
@@ -190,7 +217,8 @@ def sparse_ell_operator(data_f, cols_f, data_a, cols_a,
         _noisy(lambda v: sparse_mvm.ell_matvec(data_f, cols_f, v, row_len_f),
                sigma_read, generator),
         _noisy(lambda v: sparse_mvm.ell_matvec(data_a, cols_a, v, row_len_a),
-               sigma_read, generator), "sparse_ell")
+               sigma_read, generator), "sparse_ell",
+        capture=sigma_read <= 0.0)
 
 
 def accel_operator(accel) -> Operator:
@@ -243,7 +271,7 @@ def crossbar_operator(g_pos, g_neg, scale, m: int, n: int,
 
     if sigma_read > 0.0 and generator is None:
         raise ValueError("a noisy operator needs a torch.Generator")
-    return Operator(fwd, adj, "crossbar")
+    return Operator(fwd, adj, "crossbar", capture=sigma_read <= 0.0)
 
 
 # ------------------------------------------------- megakernel (fused) ---
@@ -296,9 +324,13 @@ def make_fused_ell(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
 # ------------------------------------------------------ update backends ---
 
 TORCH_UPDATES = Updates(pdhg_update.primal_update_plain,
-                        pdhg_update.dual_update_plain, "torch")
+                        pdhg_update.dual_update_plain, "torch",
+                        pdhg_update.schedule_plain,
+                        pdhg_update.dual_step_plain,
+                        pdhg_update.primal_step_plain)
 CUDA_UPDATES = Updates(pdhg_update.primal_update, pdhg_update.dual_update,
-                       "cuda")
+                       "cuda", pdhg_update.schedule, pdhg_update.dual_step,
+                       pdhg_update.primal_step)
 
 
 def make_updates(kernel: str = "cuda") -> Updates:
@@ -435,17 +467,152 @@ def select_lanes(mask, new, old):
                  for a, b in zip(new, old))
 
 
+# One capture stream a device for loops that run on its default stream:
+# cuBLAS keeps a workspace for every stream it has run on (32 MiB each on
+# the H100 under PyTorch 2.11), so a new stream a solve would hold one
+# more each time.
+_SIDE_STREAMS: dict = {}
+
+#: CUDA graphs of stepped windows since the counts were last set to 0:
+#: captures (one a loop call that runs two windows or more) and replays
+#: (every window of such a call after its first).
+GRAPHS = {"captures": 0, "replays": 0}
+
+
+class SteppedWindow:
+    """``n_steps`` steps of the stepped loop over buffers allocated once
+    per loop call: the window's schedule, then a step pair a step
+    (``upd.dual_step`` after the forward product, ``upd.primal_step``
+    after the adjoint), four launches a step on the card.
+
+    x and y each alternate between two buffers, so that no step writes
+    what it reads; x_bar and the two ergodic sums are updated in place.
+    ``run(state, xs, ys)`` copies the carried state and sums in, runs the
+    window and returns ``(state', xs', ys')`` as views of the buffers,
+    valid until the next ``run``.
+
+    With ``capture`` (a CUDA operator that allows it, ``Operator.
+    capture``) the first window runs eagerly on the capture stream, which
+    also sets up everything that is built on first use (the kernel
+    library, cuBLAS's workspace for that stream); the second is captured
+    once as a ``torch.cuda.CUDAGraph`` and replayed, as is every window
+    after it, on the current stream.  The capture stream is the current
+    stream (a bucket's own stream in ``BatchSolver``) unless that is the
+    default stream, which cannot be captured: then the device's one side
+    stream, ordered after it.  A replay adds the launches its capture
+    counted to the kernels' counters.  A capture that fails raises.
+    """
+
+    def __init__(self, op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
+                 gamma: float, n_steps: int, x0, y0, capture: bool):
+        self.op, self.upd, self.gamma, self.n = op, upd, gamma, n_steps
+        self.vecs = (b, c, lb, ub, T, Sigma)
+        self.x = x0.new_empty((2, *x0.shape))
+        self.y = y0.new_empty((2, *y0.shape))
+        self.x_bar = torch.empty_like(x0)
+        self.xs = torch.empty_like(x0)
+        self.ys = torch.empty_like(y0)
+        lead = tuple(x0.shape[:-1])
+        self.tau = x0.new_empty(lead)
+        self.sigma = x0.new_empty(lead)
+        self.sched = pdhg_update.schedule_buffers(self.tau, n_steps)
+        self.capture = capture
+        self.warm = False
+        self.graph = None
+        self.launches = {}
+
+    def body(self) -> None:
+        """The window's launches, from the buffers to the buffers."""
+        op, upd = self.op, self.upd
+        b, c, lb, ub, T, Sigma = self.vecs
+        sched = upd.schedule(self.tau, self.sigma, self.n, self.gamma,
+                             out=self.sched)[0]
+        for k in range(self.n):
+            x_in, x_out = self.x[k % 2], self.x[(k + 1) % 2]
+            y_in, y_out = self.y[k % 2], self.y[(k + 1) % 2]
+            upd.dual_step(y_in, op.fwd(self.x_bar), b, Sigma, sched[1, k],
+                          self.ys, out=y_out)
+            upd.primal_step(x_in, op.adj(y_out), c, T, lb, ub, sched[0, k],
+                            sched[2, k], self.xs, x_new=x_out,
+                            x_bar=self.x_bar)
+
+    def _on_capture_stream(self, fn) -> None:
+        dev = self.x.device
+        cur = torch.cuda.current_stream(dev)
+        cap = cur
+        if cur == torch.cuda.default_stream(dev):
+            cap = _SIDE_STREAMS.get(dev)
+            if cap is None:
+                cap = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+            cap.wait_stream(cur)
+        with torch.cuda.stream(cap):
+            fn()
+        if cap is not cur:
+            cur.wait_stream(cap)
+
+    def _capture(self) -> None:
+        # CUDAGraph itself, not torch.cuda.graph: that one synchronises
+        # the device first, which the transfer guard forbids and which
+        # would stall every other bucket's stream
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            self.body()
+        finally:
+            graph.capture_end()
+        after = kernels.launch_counts()
+        # capturing launches nothing: the counts belong to the replays
+        self.launches = {k: after[k] - before[k] for k in after}
+        kernels.add_launch_counts({k: -v for k, v in self.launches.items()})
+        self.graph = graph
+        GRAPHS["captures"] += 1
+
+    def run(self, state: PDHGState, xs, ys):
+        self.x[0].copy_(state.x)
+        self.y[0].copy_(state.y)
+        self.x_bar.copy_(state.x_bar)
+        self.tau.copy_(state.tau)
+        self.sigma.copy_(state.sigma)
+        self.xs.copy_(xs)
+        self.ys.copy_(ys)
+        if not self.capture:
+            self.body()
+        elif not self.warm:
+            self._on_capture_stream(self.body)
+            self.warm = True
+        else:
+            if self.graph is None:
+                self._on_capture_stream(self._capture)
+            self.graph.replay()
+            kernels.add_launch_counts(self.launches)
+            GRAPHS["replays"] += 1
+        n = self.n
+        _, tau, sigma = self.sched
+        return (PDHGState(x=self.x[n % 2], x_prev=self.x[(n - 1) % 2],
+                          x_bar=self.x_bar, y=self.y[n % 2], tau=tau,
+                          sigma=sigma), self.xs, self.ys)
+
+
 def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
               x0, y0, tau0, sigma0, *,
               max_iters: int, tol: float, gamma: float, check_every: int,
               restart_beta: float, restart: bool = True,
               step_rule: str = "fixed", eta: float = 0.95,
               residual_fn: Optional[Callable] = None,
-              read: Callable = bool):
+              read: Callable = bool, graph: bool = True):
     """The solve loop: ``check_every`` steps per window (or one fused
     launch when ``op.fuse`` is mounted), then one residual check on the
     current AND the ergodic-average iterate with a PDLP-style adaptive
     restart.
+
+    A stepped window is a ``SteppedWindow``: on a CUDA operator with
+    ``op.capture`` its launches run as one CUDA graph a window (captured
+    once a call), unless ``graph=False``.  Not captured: the windows of
+    noisy operators (their read noise draws from a ``torch.Generator``),
+    fused windows (one launch already), and the host driver
+    (``core.pdhg.solve``), which steps ``pdhg_step`` itself.  The check
+    and the restart run eagerly, once a window.
 
     One instance has (d,) vectors and 0-d step sizes; a batch of B lanes
     has a leading axis ((B, d), (B,)) and runs as the reference's
@@ -516,6 +683,11 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     if not (max_iters > 0 and math.inf > tol):
         return state.x, state.y, its, rest[0], windows
     active = torch.ones(lead, dtype=torch.bool, device=dev)
+    window = None
+    if op.fuse is None:
+        window = SteppedWindow(op, upd, b, c, lb, ub, T, Sigma, gamma,
+                               check_every, x0, y0,
+                               graph and op.capture and dev.type == "cuda")
     while True:
         merit, xs, ys, cnt, m_restart = rest
         s = state
@@ -524,9 +696,9 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
             s, dxs, dys = op.fuse(s, check_every, active)
             xs, ys = xs + dxs, ys + dys
         else:
-            for _ in range(check_every):
-                s = pdhg_step(op, upd, b, c, lb, ub, T, Sigma, gamma, s)
-                xs, ys = xs + s.x, ys + s.y
+            # the window's outputs are views of its buffers; everything
+            # below that outlives the window (the selects) is a new tensor
+            s, xs, ys = window.run(s, xs, ys)
         cnt = cnt + check_every
         Kx = op.fwd(s.x)
         KTy = op.adj(s.y)
@@ -603,7 +775,7 @@ def drain(gen):
 def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
                generator: Optional[torch.Generator], static, *,
                operator: Optional[Operator] = None, x0=None, y0=None,
-               read: Callable = bool):
+               read: Callable = bool, graph: bool = True):
     """The solve core: option plumbing around ``pdhg_loop``, for one
     instance or a batch (a generator as well; same returns).
 
@@ -617,7 +789,8 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
     a (B, m, n) stack); ``K_adj=None`` means the adjoint is exactly
     ``K_fwd``'s transpose.  The dense megakernel is mounted when asked
     for on a noiseless dense operator: its transpose form when
-    ``K_adj`` is None, else its two-matrix form.
+    ``K_adj`` is None, else its two-matrix form.  ``graph`` goes to
+    ``pdhg_loop``.
     """
     (max_iters, tol, eta, omega, gamma, check_every, restart_beta,
      sigma_read, kernel) = static[:9]
@@ -645,7 +818,7 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
         b, c, lb, ub, T, Sigma, x0, y0, tau0, sigma0,
         max_iters=max_iters, tol=tol, gamma=gamma, check_every=check_every,
         restart_beta=restart_beta, restart=restart,
-        step_rule=step_rule, eta=eta, read=read))
+        step_rule=step_rule, eta=eta, read=read, graph=graph))
 
 
 def lemma2_margin(rho, sigma_read: float):
@@ -690,3 +863,12 @@ def refine_digital_mvms(refine_rounds: int) -> int:
     issues outside the analog loops: one (Kx, K^T y) baseline pair plus
     one candidate pair per round.  Never charged to the read ledger."""
     return 0 if refine_rounds <= 0 else 2 + 2 * refine_rounds
+
+
+def refine_window_factor(refine_rounds: int) -> int:
+    """Number of analog loop solves a refined path runs (the original
+    solve plus one correction solve per round): each is a full
+    ``pdhg_loop`` whose windows charge ``mvm_window_budget`` MVMs.  The
+    MVM-budget audit multiplies the per-window budget by this when it
+    audits refined paths."""
+    return 1 + max(0, refine_rounds)

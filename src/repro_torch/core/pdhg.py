@@ -385,6 +385,7 @@ def solve_jit(
     K_fwd=None,
     K_adj=None,
     sigma_read: float = 0.0,
+    transfer_sanitize: bool = False,
     *,
     device=None,
     draws: Optional[Draws] = None,
@@ -394,9 +395,14 @@ def solve_jit(
     ``K_fwd``/``K_adj`` override the operator actually executed (already
     in the Ruiz-scaled frame); preconditioning and residuals still come
     from the nominal K.  ``sigma_read`` adds multiplicative per-MVM read
-    noise inside the loop.  ``draws`` injects the start iterate and the
-    norm estimate's start vector (see ``interop.Draws``); by default
-    they are drawn from generators seeded with ``opts.seed + 1`` and 0.
+    noise inside the loop.  ``transfer_sanitize`` runs the loop under
+    ``runtime.sanitize.no_implicit_transfers()``, reading the host once a
+    window through ``sanitize.host_read``: every input is on the device
+    by then, so any other transfer the loop makes raises (the prep and
+    the result's extraction stay unguarded).  ``draws`` injects the start
+    iterate and the norm estimate's start vector (see ``interop.Draws``);
+    by default they are drawn from generators seeded with ``opts.seed +
+    1`` and 0.
     """
     dev = resolve_device(device)
     if opts.norm_backend not in NORM_BACKENDS:
@@ -420,9 +426,19 @@ def solve_jit(
         rho = engine.lemma2_margin(
             _norm_estimate(Kf, T, Sigma, opts, v0), sigma_read)
     generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
-    x, y, _, merit, windows = engine.drain(engine.solve_core(
-        Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, rho,
-        generator, static, x0=x0, y0=y0))
+
+    def loop(read):
+        return engine.drain(engine.solve_core(
+            Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, rho,
+            generator, static, x0=x0, y0=y0, read=read))
+
+    if transfer_sanitize:
+        from ..runtime import sanitize   # runtime imports this module
+
+        with sanitize.no_implicit_transfers():
+            x, y, _, merit, windows = loop(sanitize.host_read)
+    else:
+        x, y, _, merit, windows = loop(bool)
     # one instance is active in every window it runs
     it = windows * opts.check_every
     x_orig = scaled.unscale_x(x).cpu().numpy()

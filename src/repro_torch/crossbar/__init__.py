@@ -4,7 +4,6 @@ from .device import DEVICES, EPIRAM, TAOX_HFOX, DeviceModel
 from .encode import (
     EncodedMatrix,
     charge_write,
-    ecc_decode,
     encode_core,
     encode_matrix,
     encode_stack,
@@ -24,8 +23,8 @@ from .solver import (
 
 __all__ = [
     "DEVICES", "EPIRAM", "TAOX_HFOX", "DeviceModel",
-    "EncodedMatrix", "charge_write", "ecc_decode", "encode_core",
-    "encode_matrix", "encode_stack", "write_verify_error",
+    "EncodedMatrix", "charge_write", "encode_core", "encode_matrix",
+    "encode_stack", "write_verify_error",
     "Ledger", "CrossbarArray", "analog_linear", "crossbar_accel_factory",
     "RTX6000", "GPUModel", "CrossbarBatchSolver", "CrossbarSolveReport",
     "make_crossbar_bucket_pipeline", "refined_core",

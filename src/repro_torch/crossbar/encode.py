@@ -62,7 +62,7 @@ def _quantize_(g: torch.Tensor, levels: int) -> torch.Tensor:
 ECC_DECODES = ("median", "mean")
 
 
-def ecc_decode(stack: torch.Tensor, how: str) -> torch.Tensor:
+def _ecc_vote(stack: torch.Tensor, how: str) -> torch.Tensor:
     """Reduce a (k, ...) replica stack per cell.  ``"median"`` sorts the
     replica axis and, for an even k, averages the middle pair as
     ``jnp.median``/``numpy.median`` do (``torch.median`` would return the
@@ -79,7 +79,7 @@ def ecc_decode(stack: torch.Tensor, how: str) -> torch.Tensor:
 
 def encode_core(W: torch.Tensor, generator: Optional[torch.Generator],
                 g_levels: int, sigma_program: float, *, ecc: int = 1,
-                ecc_decode_how: str = "median", stuck_rate: float = 0.0,
+                ecc_decode: str = "median", stuck_rate: float = 0.0,
                 drift: float = 0.0,
                 program_draw: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None):
@@ -90,15 +90,15 @@ def encode_core(W: torch.Tensor, generator: Optional[torch.Generator],
     of nonzero-QUANTIZED-target pairs) as 0-d tensors; ``g_pos``/
     ``g_neg`` are the decoded effective conductances: with ``ecc = k >
     1`` each cell is programmed onto k replicas (independent error and
-    faults per replica) and reduced per cell by ``ecc_decode_how``.
+    faults per replica) and reduced per cell by ``ecc_decode``.
 
     Random draws come from ``generator`` (on ``W``'s device).
     ``program_draw = (z_pos, z_neg)`` injects the two standard-normal
     programming-error arrays of the fault-free single-copy path instead,
     so that a test can hand in the reference's draws.
     """
-    if ecc_decode_how not in ECC_DECODES:
-        raise ValueError(f"unknown ecc_decode {ecc_decode_how!r}; expected "
+    if ecc_decode not in ECC_DECODES:
+        raise ValueError(f"unknown ecc_decode {ecc_decode!r}; expected "
                          f"one of {ECC_DECODES}")
     if ecc < 1:
         raise ValueError(f"ecc replication factor must be >= 1 (got {ecc})")
@@ -152,8 +152,8 @@ def encode_core(W: torch.Tensor, generator: Optional[torch.Generator],
         g_pos, g_neg = replica()
     else:
         reps = [replica() for _ in range(ecc)]
-        g_pos = ecc_decode(torch.stack([r[0] for r in reps]), ecc_decode_how)
-        g_neg = ecc_decode(torch.stack([r[1] for r in reps]), ecc_decode_how)
+        g_pos = _ecc_vote(torch.stack([r[0] for r in reps]), ecc_decode)
+        g_neg = _ecc_vote(torch.stack([r[1] for r in reps]), ecc_decode)
     return g_pos, g_neg, scale, nz
 
 
@@ -169,7 +169,7 @@ def encode_stack(W: torch.Tensor, device: DeviceModel, program):
         lanes.append(encode_core(
             W[k], None if injected else program[k], device.g_levels,
             device.sigma_program, ecc=device.ecc,
-            ecc_decode_how=device.ecc_decode, stuck_rate=device.stuck_rate,
+            ecc_decode=device.ecc_decode, stuck_rate=device.stuck_rate,
             drift=device.drift,
             program_draw=(program[0][k], program[1][k]) if injected
             else None))
@@ -243,7 +243,7 @@ def encode_matrix(
         Wp = W
     g_pos, g_neg, scale, nz = encode_core(
         Wp, generator, device.g_levels, device.sigma_program,
-        ecc=device.ecc, ecc_decode_how=device.ecc_decode,
+        ecc=device.ecc, ecc_decode=device.ecc_decode,
         stuck_rate=device.stuck_rate, drift=device.drift,
         program_draw=program_draw)
     del Wp

@@ -39,6 +39,12 @@ _SIGNATURES = {
     # vectors, step sizes, out; per-lane length; batch
     "pdhg_dual_update": [_P] * 6 + [_LL, _INT, _P],
     "pdhg_primal_update": [_P] * 10 + [_LL, _INT, _P],
+    # the step forms: as above with the running sum after the outputs;
+    # the window's schedule: tau, sigma in, schedule, tau, sigma out;
+    # batch, steps; gamma
+    "pdhg_dual_step": [_P] * 7 + [_LL, _INT, _P],
+    "pdhg_primal_step": [_P] * 11 + [_LL, _INT, _P],
+    "pdhg_schedule": [_P] * 5 + [_INT, _INT, ctypes.c_double, _P],
     # operands, state, step sizes in/out, sums, schedule scratch, the
     # live-lane mask and list; m, n, batch, steps; gamma
     "pdhg_fused_dense": [_P] * 21 + [_INT] * 4 + [ctypes.c_double, _P],

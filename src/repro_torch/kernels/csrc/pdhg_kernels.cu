@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the PDHG solve: the fused
-// updates (B1, B2) and the check-window megakernels (B3 dense, in a
-// two-matrix and a transpose form, and B5 ELL).
+// updates (B1, B2), each also in a step form that the stepped window runs
+// beside one schedule launch a window, and the check-window megakernels
+// (B3 dense, in a two-matrix and a transpose form, and B5 ELL).
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -71,6 +72,87 @@ primal_update_kernel(const T* __restrict__ x, const T* __restrict__ kty,
     const long long k = off + j;
     pdhg::primal_elem(x[k], kty[k], c[k], t[k], lb[k], ub[k], tau, theta,
                       &x_new[k], &x_bar[k]);
+  }
+}
+
+// ------------------------------------------- B1, B2: the step forms ---
+// The stepped window (core/engine.py) runs as one CUDA graph a window on
+// the card: one schedule launch, then four launches a step: the forward
+// product, dual_step_kernel, the adjoint product, primal_step_kernel.  B1
+// and B2 move 154 KB and 492 KB at the main shapes (3840 x 7680 f64), a
+// tenth of a microsecond of HBM time, so a launch from the host (about
+// 30 us of Python and driver work) and not the body sets their cost; the
+// graph takes the host out.  So the step forms do all of a step's vector
+// and scalar work in those two launches, and read everything a replay
+// needs through device pointers fixed at capture:
+//   * schedule_kernel writes every step's tau_s, sigma_s and theta_s of
+//     the window up front (pdhg::step_schedule, which B3 and B5 apply
+//     too, so the stepped and fused windows share their schedule
+//     arithmetic), and the tau and sigma that follow the window.  No
+//     step writes a step size that another block of the same launch
+//     reads;
+//   * dual_step_kernel and primal_step_kernel take step s's slot of the
+//     schedule as a pointer and fold the ergodic sums into the same pass
+//     (ys += y', xs += x': one IEEE add an element, as the loop's
+//     `xs + x` is).  Their outputs go to caller buffers, which the window
+//     alternates between steps, so no launch reads what it writes.
+// Grid (blocks, B) as B1/B2, one thread an element in a grid-stride loop.
+
+// tau_s, sigma_s, theta_s of every lane and step at sched[(0|1|2) *
+// n_steps * B + s * B + lane]; tau and sigma after the window to
+// tau_out/sigma_out.  One thread a lane.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+schedule_kernel(const T* __restrict__ tau_in, const T* __restrict__ sigma_in,
+                T* __restrict__ sched, T* __restrict__ tau_out,
+                T* __restrict__ sigma_out, int B, int n_steps, T gamma) {
+  pdhg::step_schedule(tau_in, sigma_in, nullptr, sched, tau_out, sigma_out,
+                      B, n_steps, gamma);
+}
+
+// B1's step form: out = dual_elem(y, K x_bar, b, Sigma, sigma_s) and
+// ys += out, with sigma_p pointing at step s's sigma of every lane.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dual_step_kernel(const T* __restrict__ y, const T* __restrict__ kxbar,
+                 const T* __restrict__ b, const T* __restrict__ S,
+                 const T* __restrict__ sigma_p, T* __restrict__ out,
+                 T* __restrict__ ys, long long m) {
+  const long long off = (long long)blockIdx.y * m;
+  const T sigma = sigma_p[blockIdx.y];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += stride) {
+    const long long k = off + i;
+    const T v = pdhg::dual_elem(y[k], kxbar[k], b[k], S[k], sigma);
+    out[k] = v;
+    ys[k] = ys[k] + v;
+  }
+}
+
+// B2's step form: x_new, x_bar = primal_elem(x, K^T y', c, T, lb, ub,
+// tau_s, theta_s) and xs += x_new.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+primal_step_kernel(const T* __restrict__ x, const T* __restrict__ kty,
+                   const T* __restrict__ c, const T* __restrict__ t,
+                   const T* __restrict__ lb, const T* __restrict__ ub,
+                   const T* __restrict__ tau_p,
+                   const T* __restrict__ theta_p, T* __restrict__ x_new,
+                   T* __restrict__ x_bar, T* __restrict__ xs, long long n) {
+  const long long off = (long long)blockIdx.y * n;
+  const T tau = tau_p[blockIdx.y];
+  const T theta = theta_p[blockIdx.y];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += stride) {
+    const long long k = off + j;
+    T xn, xb;
+    pdhg::primal_elem(x[k], kty[k], c[k], t[k], lb[k], ub[k], tau, theta,
+                      &xn, &xb);
+    x_new[k] = xn;
+    x_bar[k] = xb;
+    xs[k] = xs[k] + xn;
   }
 }
 
@@ -219,6 +301,42 @@ int primal_update(const void* x, const void* kty, const void* c,
                             (cudaStream_t)stream>>>(
       (const T*)x, (const T*)kty, (const T*)c, (const T*)t, (const T*)lb,
       (const T*)ub, (const T*)tau, (const T*)theta, (T*)x_new, (T*)x_bar, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int window_schedule(const void* tau_in, const void* sigma_in, void* sched,
+                    void* tau_out, void* sigma_out, int B, int n_steps,
+                    double gamma, void* stream) {
+  if (B < 1 || n_steps < 0) return (int)cudaErrorInvalidValue;
+  schedule_kernel<T><<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const T*)tau_in, (const T*)sigma_in, (T*)sched, (T*)tau_out,
+      (T*)sigma_out, B, n_steps, (T)gamma);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dual_step(const void* y, const void* kxbar, const void* b, const void* S,
+              const void* sigma, void* out, void* ys, long long m, int B,
+              void* stream) {
+  dual_step_kernel<T><<<dim3(elementwise_blocks(m), B), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const T*)y, (const T*)kxbar, (const T*)b, (const T*)S,
+      (const T*)sigma, (T*)out, (T*)ys, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int primal_step(const void* x, const void* kty, const void* c, const void* t,
+                const void* lb, const void* ub, const void* tau,
+                const void* theta, void* x_new, void* x_bar, void* xs,
+                long long n, int B, void* stream) {
+  primal_step_kernel<T><<<dim3(elementwise_blocks(n), B), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)kty, (const T*)c, (const T*)t, (const T*)lb,
+      (const T*)ub, (const T*)tau, (const T*)theta, (T*)x_new, (T*)x_bar,
+      (T*)xs, n);
   return (int)cudaGetLastError();
 }
 
@@ -424,6 +542,31 @@ int pdhg_primal_update_f64(const void* x, const void* kty, const void* c,
   return primal_update<double>(x, kty, c, t, lb, ub, tau, theta, x_new,
                                x_bar, n, B, stream);
 }
+
+#define PDHG_STEP_PAIR(SUFFIX, T)                                            \
+  int pdhg_schedule_##SUFFIX(const void* tau_in, const void* sigma_in,      \
+                             void* sched, void* tau_out, void* sigma_out,    \
+                             int B, int n_steps, double gamma,               \
+                             void* stream) {                                 \
+    return window_schedule<T>(tau_in, sigma_in, sched, tau_out, sigma_out,  \
+                              B, n_steps, gamma, stream);                    \
+  }                                                                          \
+  int pdhg_dual_step_##SUFFIX(const void* y, const void* kxbar,              \
+                              const void* b, const void* S,                  \
+                              const void* sigma, void* out, void* ys,        \
+                              long long m, int B, void* stream) {            \
+    return dual_step<T>(y, kxbar, b, S, sigma, out, ys, m, B, stream);       \
+  }                                                                          \
+  int pdhg_primal_step_##SUFFIX(                                             \
+      const void* x, const void* kty, const void* c, const void* t,          \
+      const void* lb, const void* ub, const void* tau, const void* theta,    \
+      void* x_new, void* x_bar, void* xs, long long n, int B,                \
+      void* stream) {                                                        \
+    return primal_step<T>(x, kty, c, t, lb, ub, tau, theta, x_new, x_bar,    \
+                          xs, n, B, stream);                                 \
+  }
+PDHG_STEP_PAIR(f32, float)
+PDHG_STEP_PAIR(f64, double)
 
 #define PDHG_FUSED_DENSE(SUFFIX, T)                                          \
   int pdhg_fused_dense_##SUFFIX(                                             \

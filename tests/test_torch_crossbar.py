@@ -18,11 +18,11 @@ from repro_torch.crossbar import (
     CrossbarArray,
     Ledger,
     analog_linear,
-    ecc_decode,
     encode_core,
     encode_matrix,
     write_verify_error,
 )
+from repro_torch.crossbar.encode import _ecc_vote
 from repro_torch.interop import device_from_reference, from_reference_encoded
 from repro_torch.kernels.crossbar_mvm import crossbar_mvm, crossbar_mvm_plain
 
@@ -141,10 +141,10 @@ def test_encode_counts_post_quantization_targets():
 @pytest.mark.parametrize("k", [2, 3, 4])
 def test_ecc_median_matches_numpy_on_replica_stacks(k):
     stack = np.random.default_rng(k).normal(size=(k, 9, 13))
-    got = ecc_decode(torch.from_numpy(stack), "median").numpy()
+    got = _ecc_vote(torch.from_numpy(stack), "median").numpy()
     np.testing.assert_array_equal(got, np.median(stack, axis=0))
     np.testing.assert_array_equal(
-        ecc_decode(torch.from_numpy(stack), "mean").numpy(),
+        _ecc_vote(torch.from_numpy(stack), "mean").numpy(),
         np.mean(stack, axis=0))
 
 
@@ -203,7 +203,7 @@ def test_ecc_ledger_matches_reference(x64):
 def test_ecc_rejects_bad_knobs():
     W = torch.ones((4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="ecc_decode"):
-        encode_core(W, None, 256, 0.01, ecc=3, ecc_decode_how="vote")
+        encode_core(W, None, 256, 0.01, ecc=3, ecc_decode="vote")
     with pytest.raises(ValueError, match="replication factor"):
         encode_core(W, None, 256, 0.01, ecc=0)
 

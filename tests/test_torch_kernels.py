@@ -134,7 +134,9 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
                                        "ell_matvec": 0,
                                        "fused_ell_steps": 0,
                                        "crossbar_mvm": 0,
-                                       "fused_dense_steps_kt": 0}
+                                       "fused_dense_steps_kt": 0,
+                                       "schedule": 0, "dual_step": 0,
+                                       "primal_step": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -215,7 +217,9 @@ def test_update_kernels_match_plain_on_card(cuda, dtype, tol, d):
                                        "ell_matvec": 0,
                                        "fused_ell_steps": 0,
                                        "crossbar_mvm": 0,
-                                       "fused_dense_steps_kt": 0}
+                                       "fused_dense_steps_kt": 0,
+                                       "schedule": 0, "dual_step": 0,
+                                       "primal_step": 0}
 
 
 @pytest.mark.cuda

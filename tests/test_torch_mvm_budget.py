@@ -4,9 +4,15 @@ issues must match it.  A ``TorchDispatchMode`` counts every aten
 matrix-vector and matrix-matrix product on the CPU:
 
 * each check window issues exactly ``mvm_window_budget(check_every,
-  restart)``, stepped or through the megakernel's plain version, in the
-  single-instance loop and in the batched loop (dense, ELL and COO
-  operators over a bucket of lanes);
+  restart)``, stepped or through the megakernel's plain version (the
+  dense megakernel in both forms: a distinct ``K_adj`` and
+  ``K_adj=None``), in the single-instance loop and in the batched loop
+  (dense, ELL and COO operators over a bucket of lanes), and stepped on
+  the crossbar operator (B6's plain version on the symmetric block);
+* a refined solve (``crossbar.refine.refined_core``, 1 and 2 rounds)
+  runs ``refine_window_factor`` analog loops whose every window issues
+  the budget, and issues ``refine_digital_mvms`` exact products outside
+  them;
 * ``step_rule="adaptive"`` adds none over ``"fixed"``;
 * the norm estimate issues one per iteration, and a whole ``solve_jit``
   issues ``mvm_calls`` plus the two digital products of its post-hoc
@@ -52,16 +58,30 @@ def _prepared():
     return scaled, T, Sigma
 
 
-def _window_counts(rule, restart, megakernel):
+def _sym_block_operator(K):
+    """``engine.crossbar_operator`` on the conductance pair of the
+    symmetric block [[0, K], [K^T, 0]] (scale 1, no read noise)."""
+    m, n = K.shape
+    M = torch.zeros((m + n, m + n), dtype=K.dtype)
+    M[:m, m:] = K
+    M[m:, :m] = K.T
+    return engine.crossbar_operator(torch.clamp(M, min=0.0),
+                                    torch.clamp(-M, min=0.0), 1.0, m, n)
+
+
+def _window_counts(rule, restart, megakernel, kind="dense"):
     """Products issued in each check window of a ``WINDOWS``-window run
-    (tol=0 is never met, so every window runs)."""
+    (tol=0 is never met, so every window runs); ``megakernel="kt"`` is
+    the megakernel's transpose form (``K_adj=None``)."""
     s, T, Sigma = _prepared()
     K, Ka = s.K, s.K.T.contiguous()
     gamma = RULES[rule]
-    op = engine.dense_operator(K, Ka)
+    op = (engine.dense_operator(K, Ka) if kind == "dense"
+          else _sym_block_operator(K))
     if megakernel:
         op = op._replace(fuse=engine.make_fused_dense(
-            K, Ka, s.b, s.c, s.lb, s.ub, T, Sigma, gamma))
+            K, None if megakernel == "kt" else Ka, s.b, s.c, s.lb, s.ub, T,
+            Sigma, gamma))
     g = torch.Generator().manual_seed(0)
     x0, y0 = engine.draw_init(g, K.shape[0], K.shape[1], s.lb, s.ub,
                               K.dtype)
@@ -86,8 +106,8 @@ def _window_counts(rule, restart, megakernel):
     return [b - a for a, b in zip([0] + ends[:-1], ends)]
 
 
-@pytest.mark.parametrize("megakernel", [False, True],
-                         ids=["stepped", "megakernel"])
+@pytest.mark.parametrize("megakernel", [False, True, "kt"],
+                         ids=["stepped", "megakernel", "megakernel-kt"])
 @pytest.mark.parametrize("restart", [True, False],
                          ids=["restart", "norestart"])
 @pytest.mark.parametrize("rule", list(RULES))
@@ -98,8 +118,17 @@ def test_each_window_issues_its_budget(rule, restart, megakernel):
     assert counts == [budget] * WINDOWS
 
 
-@pytest.mark.parametrize("megakernel", [False, True],
-                         ids=["stepped", "megakernel"])
+@pytest.mark.parametrize("restart", [True, False],
+                         ids=["restart", "norestart"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_each_crossbar_window_issues_its_budget(rule, restart):
+    counts = _window_counts(rule, restart, False, kind="crossbar")
+    assert counts == [engine.mvm_window_budget(CHECK_EVERY, restart)] \
+        * WINDOWS
+
+
+@pytest.mark.parametrize("megakernel", [False, True, "kt"],
+                         ids=["stepped", "megakernel", "megakernel-kt"])
 @pytest.mark.parametrize("restart", [True, False],
                          ids=["restart", "norestart"])
 def test_adaptive_adds_no_products(restart, megakernel):
@@ -146,12 +175,12 @@ def _batch_window_counts(rule, restart, megakernel, kind):
     Ks, bs, cs, lbs, ubs, T, Sigma, _, _ = tb.prep_scale(K, b, c, lb, ub,
                                                          opts)
     gamma = RULES[rule]
-    if kind == "dense":
+    if kind in ("dense", "dense-kt"):
         op = engine.dense_operator(Ks, Ks.transpose(1, 2))
         if megakernel:
             op = op._replace(fuse=engine.make_fused_dense(
-                Ks, Ks.transpose(1, 2).contiguous(), bs, cs, lbs, ubs, T,
-                Sigma, gamma))
+                Ks, (Ks.transpose(1, 2).contiguous() if kind == "dense"
+                     else None), bs, cs, lbs, ubs, T, Sigma, gamma))
     else:
         sp = [lp.sparsified() for lp in lps]
         if kind == "ell":
@@ -173,7 +202,7 @@ def _batch_window_counts(rule, restart, megakernel, kind):
             return f(v)
         return g
 
-    if kind != "dense":
+    if not kind.startswith("dense"):
         op = op._replace(fwd=counted(op.fwd), adj=counted(op.adj))
         if op.fuse is not None:
             fuse = op.fuse
@@ -209,9 +238,11 @@ def _batch_window_counts(rule, restart, megakernel, kind):
 @pytest.mark.parametrize("kind,megakernel", [("dense", False),
                                              ("dense", True),
                                              ("ell", False), ("ell", True),
-                                             ("coo", False)],
+                                             ("coo", False),
+                                             ("dense-kt", True)],
                          ids=["dense", "dense-megakernel", "ell",
-                              "ell-megakernel", "coo"])
+                              "ell-megakernel", "coo",
+                              "dense-megakernel-kt"])
 @pytest.mark.parametrize("restart", [True, False],
                          ids=["restart", "norestart"])
 @pytest.mark.parametrize("rule", list(RULES))
@@ -220,3 +251,57 @@ def test_each_batched_window_issues_its_budget(rule, restart, megakernel,
     counts = _batch_window_counts(rule, restart, megakernel, kind)
     assert counts == [engine.mvm_window_budget(CHECK_EVERY, restart)] \
         * WINDOWS
+
+
+# ------------------------------------------------------ refined solves ---
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("restart", [True, False],
+                         ids=["restart", "norestart"])
+def test_refined_solve_issues_its_budget(restart, rounds):
+    """``refined_core`` runs ``refine_window_factor(rounds)`` analog loops
+    of ``WINDOWS`` windows each, every window issuing the budget on the
+    programmed operator, and ``refine_digital_mvms(rounds)`` exact
+    products outside them."""
+    from repro_torch.crossbar.refine import refined_core
+
+    s, T, Sigma = _prepared()
+    K = s.K
+    opts = tp.PDHGOptions(max_iters=WINDOWS * CHECK_EVERY, tol=0.0,
+                          check_every=CHECK_EVERY, restart=restart,
+                          refine_rounds=rounds)
+    analog = [0]
+
+    def counted(f):
+        def g(v):
+            analog[0] += 1
+            return f(v)
+        return g
+
+    op = engine.dense_operator(K, K.T.contiguous())
+    op = op._replace(fwd=counted(op.fwd), adj=counted(op.adj))
+    g = torch.Generator().manual_seed(0)
+    x0, y0 = engine.draw_init(g, K.shape[0], K.shape[1], s.lb, s.ub,
+                              K.dtype)
+    marks = []
+
+    def read(flag):
+        marks.append(analog[0])
+        return bool(flag)
+
+    with ProductCounter() as counter:
+        _, _, its, _, windows = engine.drain(refined_core(
+            K, K.T, K, K.T, s.b, s.c, s.lb, s.ub, T, Sigma,
+            torch.tensor(10.0, dtype=K.dtype), g, tp.opts_static(opts),
+            operator=op, x0=x0, y0=y0, read=read))
+    factor = engine.refine_window_factor(rounds)
+    assert factor == rounds + 1 and engine.refine_window_factor(-1) == 1
+    assert windows == [WINDOWS] * factor
+    assert [int(i) for i in its] == [WINDOWS * CHECK_EVERY] * factor
+    budget = engine.mvm_window_budget(CHECK_EVERY, restart)
+    assert [b - a for a, b in zip([0] + marks[:-1], marks)] == \
+        [budget] * (WINDOWS * factor)
+    assert analog[0] == budget * WINDOWS * factor
+    # the analog operator is dense: every product it issues is an aten
+    # product too
+    assert counter.count - analog[0] == engine.refine_digital_mvms(rounds)
