@@ -56,7 +56,17 @@ Phases, in order; any failure raises and exits non-zero:
    bucket's stream), the same eagerly (the same iterations, ``x`` bit
    for bit, the same launches), then with the megakernel (B5 every
    window), the same iterations and ``x`` within 1e-8, every launch
-   counted, and a warm pass that builds nothing.
+   counted, and a warm pass that builds nothing;
+8. the distributed path (``distributed.solve_dist``), each rank a
+   process of this script started with a timeout: the full-width dense
+   instance on a 1x1 mesh over NCCL (the stepped ``solve_jit``'s
+   iterations, ``x`` within 1e-10; the schedule, B1's and B2's step
+   forms counted), then 2000 steps on it and on a 2x2 mesh of four
+   ranks time-sharing the one card over gloo with CUDA tensors (the same
+   iterations, ``x`` within 1e-9; ``compressed_psum`` within its bound
+   of the exact all-reduce), the time inside the all-reduces printed;
+   and two pods of ``ClusterBatchSolver`` over a ``DirectoryTransport``
+   on the small dense stream, bitwise one ``BatchSolver``'s.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -170,6 +180,10 @@ STREAM_MAX_ITERS = 160000
 SMALL_DENSE = "rand:8x14,rand:10x18,rand:24x40"
 SMALL_SPARSE = "sprand:96x192:0.05,sprand:128x256:0.02"
 SMALL_STREAM_CROSSBAR_ITERS = 10000
+# the distributed phase: the fixed budget of its 1x1 / 2x2 comparison,
+# and each spawned group's time limit
+DIST_BUDGET = 2000
+DIST_TIMEOUT_S = 300
 
 
 def launches(**nonzero) -> dict:
@@ -853,7 +867,7 @@ def phase_main(instance: str):
     check(ra.iterations == rb.iterations,
           f"iterations differ: {ra.iterations} vs {rb.iterations}")
     check(dx <= 1e-8, f"x differs by {dx:.3e}")
-    return counts
+    return counts, ra
 
 
 def _ledger_line(led) -> str:
@@ -1602,6 +1616,284 @@ def phase_stream(lps, probe: bool = False):
     return counts
 
 
+# ------------------------------------------------------- distributed ---
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _spawn_ranks(role: str, world: int, out_dir: str) -> list:
+    """Run ``world`` processes of this script, rank r of ``role`` each,
+    within ``DIST_TIMEOUT_S``; every process is stopped before this
+    returns, and a rank that failed or outlived the limit fails the
+    smoke.  Returns each rank's saved arrays."""
+    import numpy as np
+
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--role", role,
+         "--rank", str(r), "--world", str(world), "--port", str(port),
+         "--out", out_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    outs, failed = [None] * world, None
+    try:
+        for i, p in enumerate(procs):
+            try:
+                outs[i] = p.communicate(
+                    timeout=max(0.1, deadline - time.monotonic()))[0]
+            except subprocess.TimeoutExpired:
+                failed = f"rank {i} still running after {DIST_TIMEOUT_S} s"
+                break
+            if p.returncode != 0:
+                failed = f"rank {i} exited {p.returncode}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for i, p in enumerate(procs):
+            if outs[i] is None:
+                outs[i] = p.communicate()[0]
+    for i, text in enumerate(outs):
+        for line in text.splitlines()[-40:]:
+            print(f"  {role}{world} rank {i}: {line}", flush=True)
+    check(failed is None, f"{role} on {world} ranks: {failed}")
+    return [dict(np.load(os.path.join(out_dir, f"{role}{world}-{r}.npz")))
+            for r in range(world)]
+
+
+def _init_rank(args, backend: str) -> None:
+    """One rank of a process group on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend,
+                            init_method=f"tcp://localhost:{args.port}",
+                            rank=args.rank, world_size=args.world)
+
+
+def role_dist(args) -> None:
+    """A rank of ``solve_dist`` on the full-width instance: world 1 is a
+    1x1 mesh over NCCL (the whole solve, then the fixed budget), world 4
+    a 2x2 mesh over gloo on CUDA tensors (the fixed budget, and
+    ``compressed_psum`` against the exact all-reduce)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.pdhg import PDHGOptions
+    from repro_torch.distributed import compressed_psum, solve_dist
+    from repro_torch.launch import solve as cli
+    from repro_torch.runtime.mesh import make_mesh
+
+    one = args.world == 1
+    backend = "nccl" if one else "gloo"
+    _init_rank(args, backend)
+    mesh = make_mesh((1, 1) if one else (2, 2), ("data", "model"),
+                     backend=backend)
+    lp = cli.load_instance(MAIN_INSTANCE)
+    out = {}
+
+    def run(label, opts, timed):
+        kernels.reset_launch_counts()
+        engine.COLLECTIVES["all_reduce"] = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx = (engine.timed_collectives() if timed
+               else contextlib.nullcontext())
+        with ctx as coll:
+            res = solve_dist(lp, mesh, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll = coll or {"seconds": float("nan"), "calls": 0}
+        out.update({f"{label}/x": res.x, f"{label}/iterations":
+                    res.iterations, f"{label}/status": res.status,
+                    f"{label}/merit": res.merit, f"{label}/wall": wall,
+                    f"{label}/coll_s": coll["seconds"],
+                    f"{label}/coll_calls": coll["calls"],
+                    f"{label}/all_reduce": engine.COLLECTIVES["all_reduce"],
+                    f"{label}/launches": json.dumps(kernels.launch_counts())})
+        print(f"{label}: status={res.status} iterations={res.iterations} "
+              f"wall_s={wall:.3f} all_reduce="
+              f"{engine.COLLECTIVES['all_reduce']} in_all_reduce_s="
+              f"{coll['seconds']:.6f}", flush=True)
+
+    if one:
+        run("solve", PDHGOptions(max_iters=MAX_ITERS, tol=TOL,
+                                 check_every=CHECK_EVERY), timed=False)
+    run("budget", PDHGOptions(max_iters=DIST_BUDGET, tol=0.0,
+                              check_every=CHECK_EVERY), timed=True)
+    if not one:
+        # the quantized sum against the exact one, on CUDA tensors over
+        # gloo (a max all-reduce, then an int32 sum)
+        g = mesh.group(("data", "model"))
+        gen = torch.Generator(device="cuda").manual_seed(args.rank)
+        x = 3.0 * torch.randn(3840, generator=gen, dtype=torch.float64,
+                              device="cuda")
+        exact = engine.all_reduce(x.clone(), g)
+        amax = float(engine.all_reduce(x.abs().max().reshape(1), g,
+                                       op="max")[0])
+        for bits in (8, 16):
+            q = compressed_psum(x, g, bits=bits)
+            out[f"psum{bits}/err"] = float((q - exact).abs().max())
+            # the reference's bound, half a step of the global scale, for
+            # each rank's share
+            out[f"psum{bits}/bound"] = (args.world * 0.5 * amax
+                                        / (2.0 ** (bits - 1) - 1.0))
+        # stochastic rounding: under one step a rank
+        q = compressed_psum(x, g, torch.Generator(device="cuda")
+                            .manual_seed(7), bits=8)
+        out["psum8s/err"] = float((q - exact).abs().max())
+        out["psum8s/bound"] = args.world * amax / 127.0
+    np.savez(os.path.join(args.out, f"dist{args.world}-{args.rank}.npz"),
+             **out)
+    dist.destroy_process_group()
+
+
+def role_pod(args) -> None:
+    """One pod of the small dense stream over a ``DirectoryTransport``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pdhg import PDHGOptions
+    from repro_torch.launch import solve as cli
+    from repro_torch.runtime.cluster import (
+        ClusterBatchSolver,
+        DirectoryTransport,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lps = [cli.load_instance(s, seed=i)
+           for i, s in enumerate(SMALL_DENSE.split(","))]
+    solver = ClusterBatchSolver(
+        PDHGOptions(max_iters=MAX_ITERS, tol=TOL, check_every=CHECK_EVERY),
+        pod=args.rank, n_pods=args.world, live_pods=args.world,
+        transport=DirectoryTransport(os.path.join(args.out, "transport")),
+        straggler_timeout=60.0, gather_timeout=DIST_TIMEOUT_S)
+    res = solver.solve_stream(lps)
+    st = solver.last_stream_stats
+    print(f"pod {args.rank}: routing={st['routing']} local_buckets="
+          f"{st['n_local_buckets']} rerouted={st['rerouted_buckets']}",
+          flush=True)
+    np.savez(os.path.join(args.out, f"pod{args.world}-{args.rank}.npz"),
+             x=np.concatenate([r.x for r in res]),
+             y=np.concatenate([r.y for r in res]),
+             iterations=[r.iterations for r in res],
+             merit=[r.merit for r in res],
+             routing=json.dumps(st["routing"]))
+
+
+def phase_distributed(stepped):
+    """The distributed path through ``solve_dist`` and the cluster
+    solver, each rank its own process; returns the launch counts of the
+    1x1 solve and of the 2x2 budget's rank 0."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.pdhg import PDHGOptions
+    from repro_torch.launch import solve as cli
+    from repro_torch.runtime import BatchSolver
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    try:
+        t0 = time.perf_counter()
+        (one,) = _spawn_ranks("dist", 1, tmp)
+        print(f"dist 1x1: ranks done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        t0 = time.perf_counter()
+        four = _spawn_ranks("dist", 4, tmp)
+        print(f"dist 2x2: ranks done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        t0 = time.perf_counter()
+        pods = _spawn_ranks("pod", 2, tmp)
+        print(f"dist pods: ranks done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    it = int(one["solve/iterations"])
+    dx = float(np.abs(one["solve/x"] - stepped.x).max())
+    wall = float(one["solve/wall"])
+    print(f"dist 1x1 nccl {MAIN_INSTANCE}: status={one['solve/status']} "
+          f"iterations={it} wall_s={wall:.3f} us_per_step="
+          f"{1e6 * wall / it:.3f} all_reduce={int(one['solve/all_reduce'])} "
+          f"max|dx| vs stepped solve_jit={dx:.3e}", flush=True)
+    check(str(one["solve/status"]) == "optimal" and it == stepped.iterations,
+          f"dist 1x1: {one['solve/status']} in {it} iterations, "
+          f"solve_jit {stepped.iterations}")
+    check(dx <= 1e-10, f"dist 1x1: x differs from solve_jit by {dx:.3e}")
+    for label, res, path in (("1x1 nccl", one, "solve"),
+                             ("1x1 nccl", one, "budget"),
+                             ("2x2 gloo, 4 ranks on 1 card", four[0],
+                              "budget")):
+        steps = int(res[f"{path}/iterations"])
+        d = json.loads(str(res[f"{path}/launches"]))
+        want = stepped_launches(steps)
+        check(d == want, f"dist {label} {path}: launches {d}, expected "
+                         f"{want}")
+        # two all-reduces a step, eight a check, the norm and two gathers
+        n_coll = int(res[f"{path}/all_reduce"])
+        check(n_coll == 2 * steps + 8 * (steps // CHECK_EVERY) + 3,
+              f"dist {label} {path}: {n_coll} all-reduces")
+        if path == "budget":
+            w, c = float(res["budget/wall"]), float(res["budget/coll_s"])
+            print(f"dist {label} budget: iterations={steps} wall_s={w:.3f} "
+                  f"us_per_step={1e6 * w / steps:.3f} in_all_reduce_s="
+                  f"{c:.6f} ({int(res['budget/coll_calls'])} calls, "
+                  f"share={c / w:.4f} of the wall)", flush=True)
+    dx4 = float(np.abs(four[0]["budget/x"] - one["budget/x"]).max())
+    print(f"dist 2x2 vs 1x1 at {DIST_BUDGET} steps: max|dx|={dx4:.3e}",
+          flush=True)
+    check(int(one["budget/iterations"]) == DIST_BUDGET
+          and all(int(r["budget/iterations"]) == DIST_BUDGET
+                  and np.array_equal(r["budget/x"], four[0]["budget/x"])
+                  for r in four),
+          "dist: the budget runs' iterations or ranks differ")
+    check(dx4 <= 1e-9, f"dist 2x2: x differs from 1x1 by {dx4:.3e}")
+    for r, res in enumerate(four):
+        for key in ("psum8", "psum16", "psum8s"):
+            err, bound = float(res[f"{key}/err"]), float(res[f"{key}/bound"])
+            check(err <= bound * (1 + 1e-9),
+                  f"compressed_psum {key} rank {r}: {err:.3e} > {bound:.3e}")
+    print("dist compressed_psum on CUDA over gloo (err/bound): "
+          + " ".join(f"{k}={float(four[0][k + '/err']):.3e}/"
+                     f"{float(four[0][k + '/bound']):.3e}"
+                     for k in ("psum8", "psum16", "psum8s")), flush=True)
+    lps = [cli.load_instance(s, seed=i)
+           for i, s in enumerate(SMALL_DENSE.split(","))]
+    base = BatchSolver(PDHGOptions(max_iters=MAX_ITERS, tol=TOL,
+                                   check_every=CHECK_EVERY)).solve_stream(lps)
+    routing = json.loads(str(pods[0]["routing"]))
+    print(f"dist pods: routing={routing}", flush=True)
+    check(set(routing.values()) == {0, 1}, f"pods: routing {routing}")
+    for r, res in enumerate(pods):
+        check(np.array_equal(res["x"], np.concatenate([b.x for b in base]))
+              and np.array_equal(res["y"], np.concatenate(
+                  [b.y for b in base]))
+              and list(res["iterations"]) == [b.iterations for b in base]
+              and list(res["merit"]) == [b.merit for b in base],
+              f"pods: pod {r}'s stream differs from one BatchSolver's")
+    print("dist pods: both pods' streams bitwise one BatchSolver's",
+          flush=True)
+    return {"distributed 1x1": json.loads(str(one["solve/launches"])),
+            "distributed 2x2 budget": json.loads(
+                str(four[0]["budget/launches"]))}
+
+
 # the full-width path on which each kernel's ``launches`` is read: the
 # stepped loop runs B1's and B2's step forms, and B1 and B2 themselves
 # run on the host driver, which steps ``engine.pdhg_step``; the stepped
@@ -1627,6 +1919,13 @@ def main() -> int:
                     help="comma-separated scales: run only the stepped "
                          "full-width sparse stream at each, within the "
                          "CLI's iteration budget")
+    # one rank of the distributed phase (the smoke starts these itself)
+    ap.add_argument("--role", default=None, choices=["dist", "pod"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -1638,6 +1937,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    if args.role is not None:
+        {"dist": role_dist, "pod": role_pod}[args.role](args)
+        return 0
 
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
@@ -1691,10 +1993,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(ell_matvec=ell_rows["ell_matvec"],
                 fused_ell_steps=ell_rows["fused_ell_steps"])
-    counts = phase_main(MAIN_INSTANCE)
+    counts, stepped = phase_main(MAIN_INSTANCE)
     counts.update(phase_crossbar(MAIN_INSTANCE))
     counts.update(phase_small_streams())
     counts.update(phase_stream(lps))
+    del lps
+    torch.cuda.empty_cache()
+    counts.update(phase_distributed(stepped))
 
     line = []
     extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",

@@ -13,6 +13,7 @@ from .engine import (
     mvm_accounting,
     pdhg_loop,
     pdhg_step,
+    sharded_operator,
 )
 from .symblock import (
     MODE_AX,
@@ -57,7 +58,8 @@ from .infeasibility import Certificate, check_farkas, difference_ray
 __all__ = [
     "engine", "Operator", "PDHGState", "Updates", "accel_operator",
     "crossbar_operator", "dense_operator", "make_updates", "mvm_accounting",
-    "pdhg_loop", "pdhg_step", "MODE_AX", "MODE_ATY", "MODE_FULL", "Accel",
+    "pdhg_loop", "pdhg_step", "sharded_operator", "MODE_AX", "MODE_ATY",
+    "MODE_FULL", "Accel",
     "as_dense", "build_sym_block", "encode_exact", "encode_noisy",
     "matmul_accel", "scaled_accel", "NORM_BACKENDS", "LanczosResult",
     "lanczos_svd", "lanczos_svd_jit", "lanczos_svd_jit_mv", "power_iteration",

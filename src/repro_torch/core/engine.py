@@ -47,10 +47,13 @@ vmapped ``while_loop``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import kernels
 from ..kernels import crossbar_mvm, pdhg_megakernel, pdhg_update, sparse_mvm
@@ -274,6 +277,91 @@ def crossbar_operator(g_pos, g_neg, scale, m: int, n: int,
     return Operator(fwd, adj, "crossbar", capture=sigma_read <= 0.0)
 
 
+#: all-reduces issued by the sharded path (``sharded_operator`` and the
+#: distributed merit) since the count was last set to 0, and, while
+#: ``timed_collectives`` is open, the seconds they took.
+COLLECTIVES = {"all_reduce": 0}
+_COLLECTIVE_TIMES: Optional[list] = None
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced in place over the ranks of ``group`` (``"sum"`` or
+    ``"max"``) and returned.  ``group`` None is a mesh axis of one rank
+    in a process with no process group: nothing to reduce."""
+    if group is None:
+        return t
+    COLLECTIVES["all_reduce"] += 1
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    if _COLLECTIVE_TIMES is None:
+        dist.all_reduce(t, op=red, group=group)
+    elif t.is_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(t, op=red, group=group)
+        end.record()
+        _COLLECTIVE_TIMES.append((start, end))
+    else:
+        t0 = time.perf_counter()
+        dist.all_reduce(t, op=red, group=group)
+        _COLLECTIVE_TIMES.append(time.perf_counter() - t0)
+    return t
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Time every ``all_reduce`` inside: CUDA events around each on the
+    card (from its place in the stream to the end of the reduction),
+    the host's clock on the CPU.  Yields a dict whose ``"seconds"`` (the
+    sum) and ``"calls"`` are filled in on exit, after a synchronise."""
+    global _COLLECTIVE_TIMES
+    out = {"seconds": 0.0, "calls": 0}
+    _COLLECTIVE_TIMES = times = []
+    try:
+        yield out
+    finally:
+        _COLLECTIVE_TIMES = None
+        if times and not isinstance(times[0], float):
+            times[-1][1].synchronize()
+            times = [a.elapsed_time(b) / 1e3 for a, b in times]
+        out.update(seconds=float(sum(times)), calls=len(times))
+
+
+def sharded_operator(K_loc, row_axis, col_axis) -> Operator:
+    """Process-group tiled backend: this rank owns a static (m_loc,
+    n_loc) tile of K; ``fwd`` is the local product and an all-reduce
+    over ``col_axis``, the process group of the column axes (the ranks
+    of this rank's grid row: "sum the currents along a crossbar grid
+    row"), ``adj`` the local transpose product and an all-reduce over
+    ``row_axis``, that of the row axes (``runtime.mesh.Mesh.group``).
+    Two collectives a step, each in plain sight here.
+
+    Tiles may be narrower than the vectors.  A torch matmul of two bf16
+    operands returns bf16, where the reference accumulates in at least
+    f32 (its ``preferred_element_type``); so a tile below f32 is
+    widened to f32 once, here, and each product rounds ``v`` to the
+    tile's type and back before an f32 GEMV: the same products, each
+    exact in f32, accumulated in f32, at the memory of an f32 tile.
+    Wider tiles (f32, f64) multiply in their own type.  The windows run
+    eagerly (``capture`` False): a collective is not captured here."""
+    acc = torch.promote_types(K_loc.dtype, torch.float32)
+    tile_dt = K_loc.dtype
+    K_acc = K_loc.to(acc)
+    K_adj = K_acc.mT
+
+    def product(M, v):
+        v_t = v.to(tile_dt).to(acc) if tile_dt != acc else v.to(acc)
+        return torch.mv(M, v_t).to(v.dtype)
+
+    def fwd(v):
+        return all_reduce(product(K_acc, v), col_axis)
+
+    def adj(v):
+        return all_reduce(product(K_adj, v), row_axis)
+
+    return Operator(fwd, adj, "sharded")
+
+
 # ------------------------------------------------- megakernel (fused) ---
 
 def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
@@ -386,14 +474,22 @@ def _tiny(ref: torch.Tensor) -> torch.Tensor:
     return torch.full((), _ADAPT_TINY, dtype=ref.dtype, device=ref.device)
 
 
-def adaptive_omega_init(tau0, sigma0, b, c, T, Sigma):
+def lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """The default ``xsum``/``ysum``: a vector's sum, one per lane."""
+    return torch.sum(v, dim=-1)
+
+
+def adaptive_omega_init(tau0, sigma0, b, c, T, Sigma,
+                        xsum=lane_sum, ysum=lane_sum):
     """Data-driven primal-weight initialization (the PDLP heuristic in
     the preconditioned metric): scale ``omega = sqrt(sigma/tau)`` by
-    ``sqrt(|T^1/2 c| / |Sigma^1/2 b|)``, clipped to [1/1024, 1024]."""
+    ``sqrt(|T^1/2 c| / |Sigma^1/2 b|)``, clipped to [1/1024, 1024].
+    ``xsum``/``ysum`` reduce primal/dual vectors (the sharded path
+    passes all-reduced sums, so every rank derives the same weight)."""
     tiny = _tiny(b)
     one = torch.ones_like(tiny)
-    nc2 = torch.sum(T * c * c, dim=-1)
-    nb2 = torch.sum(Sigma * b * b, dim=-1)
+    nc2 = xsum(T * c * c)
+    nb2 = ysum(Sigma * b * b)
     w = (torch.maximum(nc2, tiny) / torch.maximum(nb2, tiny)) ** 0.25
     w = torch.clamp(w, 1.0 / ADAPT_OMEGA_CLIP, ADAPT_OMEGA_CLIP)
     ok = (nc2 > tiny) & (nb2 > tiny)
@@ -401,19 +497,20 @@ def adaptive_omega_init(tau0, sigma0, b, c, T, Sigma):
     return tau0 / w, sigma0 * w
 
 
-def adaptive_shrink(tau, sigma, eta, dx, dy, Kdx, KTdy, T, Sigma, ok):
+def adaptive_shrink(tau, sigma, eta, dx, dy, Kdx, KTdy, T, Sigma, ok,
+                    xsum=lane_sum, ysum=lane_sum):
     """Down-only step-scale safeguard at every check boundary (zero
     extra MVMs: ``Kdx``/``KTdy`` come from the check MVMs by
     linearity).  The Rayleigh quotient along the window's movement is a
     lower bound on the preconditioned operator norm, so when
     ``sqrt(tau*sigma) * rho_loc > eta`` the scale shrinks to
-    ``eta / rho_loc``; it is never grown."""
+    ``eta / rho_loc``; it is never grown.  ``xsum``/``ysum`` as in
+    ``adaptive_omega_init``."""
     tiny = _tiny(dx)
     one = torch.ones_like(tiny)
-    ndx2 = torch.sum(dx * dx / T, dim=-1)
-    ndy2 = torch.sum(dy * dy / Sigma, dim=-1)
-    nK2 = (torch.sum(Sigma * Kdx * Kdx, dim=-1)
-           + torch.sum(T * KTdy * KTdy, dim=-1))
+    ndx2 = xsum(dx * dx / T)
+    ndy2 = ysum(dy * dy / Sigma)
+    nK2 = ysum(Sigma * Kdx * Kdx) + xsum(T * KTdy * KTdy)
     mv2 = ndx2 + ndy2
     rho_loc = torch.sqrt(nK2 / torch.maximum(mv2, tiny))
     g = torch.sqrt(tau * sigma)
@@ -423,14 +520,16 @@ def adaptive_shrink(tau, sigma, eta, dx, dy, Kdx, KTdy, T, Sigma, ok):
     return tau * s, sigma * s
 
 
-def adaptive_omega_update(tau, sigma, dx, dy, T, Sigma, w_lo, w_hi, ok):
+def adaptive_omega_update(tau, sigma, dx, dy, T, Sigma, w_lo, w_hi, ok,
+                          xsum=lane_sum, ysum=lane_sum):
     """PDLP primal-weight rebalancing at RESTART events only: pull
     ``omega = sqrt(sigma/tau)`` toward the dual/primal movement ratio
     since the previous restart anchor with log-space smoothing, clipped
-    to ``[w_lo, w_hi]``; the product ``tau*sigma`` is preserved."""
+    to ``[w_lo, w_hi]``; the product ``tau*sigma`` is preserved.
+    ``xsum``/``ysum`` as in ``adaptive_omega_init``."""
     tiny = _tiny(dx)
-    ndx2 = torch.sum(dx * dx / T, dim=-1)
-    ndy2 = torch.sum(dy * dy / Sigma, dim=-1)
+    ndx2 = xsum(dx * dx / T)
+    ndy2 = ysum(dy * dy / Sigma)
     ok = ok & (ndx2 > tiny) & (ndy2 > tiny)
     w_old = torch.sqrt(sigma / tau)
     ratio = torch.sqrt(ndy2 / torch.maximum(ndx2, tiny))
@@ -599,6 +698,8 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
               max_iters: int, tol: float, gamma: float, check_every: int,
               restart_beta: float, restart: bool = True,
               step_rule: str = "fixed", eta: float = 0.95,
+              xsum_fn: Optional[Callable] = None,
+              ysum_fn: Optional[Callable] = None,
               residual_fn: Optional[Callable] = None,
               read: Callable = bool, graph: bool = True):
     """The solve loop: ``check_every`` steps per window (or one fused
@@ -635,6 +736,11 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     schedule inside the window (the step carries it in tau/sigma).
     Restart and step-rule state is all per lane.
 
+    ``xsum_fn``/``ysum_fn`` reduce primal/dual vectors in the adaptive
+    rule (default ``lane_sum``); the sharded path (``distributed.
+    pdhg_dist``) passes all-reduced sums.  Its windows run eagerly:
+    a sharded operator does not allow capture (``sharded_operator``).
+
     ``residual_fn(x, x_prev, y, Kx, KTy) -> merit`` defaults to the
     dense KKT residual max.  A generator: it yields once a window, just
     before the one host read of that window (``read(active.any())``), so
@@ -648,6 +754,8 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
         raise ValueError(f"unknown step_rule {step_rule!r}; expected one "
                          f"of {STEP_RULES}")
     adaptive = step_rule == "adaptive"
+    xsum = lane_sum if xsum_fn is None else xsum_fn
+    ysum = lane_sum if ysum_fn is None else ysum_fn
     if residual_fn is None:
         def residual_fn(x, x_prev, y, Kx, KTy):
             return kkt_residuals(x, x_prev, y, c, b, Kx, KTy,
@@ -663,7 +771,8 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     sigma0 = torch.as_tensor(sigma0, dtype=dt, device=dev).expand(lead)
     anchors = ()
     if adaptive:
-        tau0, sigma0 = adaptive_omega_init(tau0, sigma0, b, c, T, Sigma)
+        tau0, sigma0 = adaptive_omega_init(tau0, sigma0, b, c, T, Sigma,
+                                           xsum, ysum)
         w0 = torch.sqrt(sigma0 / tau0)
         w_lo = w0 / ADAPT_OMEGA_CLIP
         w_hi = w0 * ADAPT_OMEGA_CLIP
@@ -734,7 +843,7 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
                 rx, ry = anchors[5:]
                 tau_n, sigma_n = adaptive_omega_update(
                     s.tau, s.sigma, s.x - rx, s.y - ry, T, Sigma, w_lo,
-                    w_hi, do_restart)
+                    w_hi, do_restart, xsum, ysum)
                 s = s._replace(tau=tau_n, sigma=sigma_n)
                 new_anchors = anchors[:5] + select_lanes(
                     do_restart, (s.x, s.y), (rx, ry))
@@ -742,7 +851,7 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
             ax, ay, aKx, aKTy, aok = new_anchors[:5]
             tau_n, sigma_n = adaptive_shrink(
                 s.tau, s.sigma, eta, s.x - ax, s.y - ay, Kx_c - aKx,
-                KTy_c - aKTy, T, Sigma, aok)
+                KTy_c - aKTy, T, Sigma, aok, xsum, ysum)
             s = s._replace(tau=tau_n, sigma=sigma_n)
             new_anchors = ((s.x, s.y, Kx_c, KTy_c, torch.ones_like(aok))
                            + new_anchors[5:])

@@ -243,17 +243,20 @@ class CrossbarBatchSolver(BatchSolver):
 
     Sparse instances densify on entry (``supports_sparse = False``): a
     crossbar programs every physical cell of its tiles regardless of the
-    operator's sparsity.
+    operator's sparsity.  ``mesh`` splits each bucket's lanes over the
+    ranks of ``batch_axes`` (``runtime.batch``).
     """
 
     supports_sparse = False
 
     def __init__(self, opts: PDHGOptions = PDHGOptions(), *,
-                 device: DeviceModel = EPIRAM,
+                 device: DeviceModel = EPIRAM, mesh=None,
+                 batch_axes: Tuple[str, ...] = ("data",),
                  kernel: Optional[str] = None, async_dispatch: bool = True,
                  transfer_sanitize: bool = False, torch_device=None):
         super().__init__(
-            opts, sigma_read=device.sigma_read,
+            opts, mesh=mesh, batch_axes=batch_axes,
+            sigma_read=device.sigma_read,
             tile=(device.crossbar_rows, device.crossbar_cols),
             kernel=kernel, async_dispatch=async_dispatch,
             transfer_sanitize=transfer_sanitize, torch_device=torch_device)
@@ -331,6 +334,7 @@ def solve_crossbar_stream(
     opts: PDHGOptions = PDHGOptions(),
     device: DeviceModel = EPIRAM,
     *,
+    mesh=None,
     solver: Optional[CrossbarBatchSolver] = None,
     torch_device=None,
     draws: Optional[Callable] = None,
@@ -341,8 +345,9 @@ def solve_crossbar_stream(
     encode -> solve as one pipeline (see ``CrossbarBatchSolver``) on
     ``torch_device`` (the card unless it says otherwise).  Pass
     ``solver`` to keep the pipelines warm across streams, ``draws`` to
-    inject every lane's draws."""
+    inject every lane's draws; ``mesh`` shards each bucket's lanes over
+    its ranks (``runtime.batch``)."""
     if solver is None:
-        solver = CrossbarBatchSolver(opts, device=device,
+        solver = CrossbarBatchSolver(opts, device=device, mesh=mesh,
                                      torch_device=torch_device)
     return solver.solve_stream(lps, draws=draws)

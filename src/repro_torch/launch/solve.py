@@ -17,15 +17,28 @@
   PYTHONPATH=src python -m repro_torch.launch.solve --backend batch \
       --device taox --instances rand:8x14,rand:10x18,rand:24x40
       # device-tile-aware stream through the crossbar simulator
+  PYTHONPATH=src python -m repro_torch.launch.solve --instance \
+      rand:96x160 --backend distributed   # sharded PDHG over the ranks
+  REPRO_COORDINATOR=localhost:29500 REPRO_NUM_PROCESSES=4 \
+  REPRO_PROCESS_ID=<0..3> PYTHONPATH=src python -m \
+      repro_torch.launch.solve --backend distributed --cluster auto \
+      --dist-backend gloo --instance rand:96x160
+      # one process a rank, four ranks on one card over gloo
+  REPRO_COORDINATOR=localhost:29500 REPRO_NUM_PROCESSES=2 \
+  REPRO_PROCESS_ID=<0|1> REPRO_TRANSPORT_DIR=/shared/dir PYTHONPATH=src \
+  python -m repro_torch.launch.solve --backend batch --cluster auto \
+      --instances rand:8x14,rand:10x18,rand:24x40
+      # multi-host serving: per-pod bucket routing + straggler reroute
 
 ``--backend exact`` runs the dense ``solve_jit``; ``epiram``/``taox``
 run ``crossbar.solve_crossbar_jit`` on that device model; ``batch``
 serves ``--instances`` through ``runtime.BatchSolver`` (or, with
-``--device``, ``crossbar.solve_crossbar_stream``).  ``distributed``,
-``--pods`` and ``--cluster`` exit with an error that names the ROADMAP
-item bringing them.  ``--device`` is the crossbar device model of the
-batch stream, as in the reference; the hardware is chosen with
-``--torch-device``.
+``--device``, ``crossbar.solve_crossbar_stream``; with ``--pods`` or a
+cluster, ``runtime.ClusterBatchSolver``); ``distributed`` runs
+``distributed.solve_dist`` over the local mesh of the process group's
+ranks (one rank without one), or ``solve_dist_auto`` with ``--cluster
+auto``.  ``--device`` is the crossbar device model of the batch stream,
+as in the reference; the hardware is chosen with ``--torch-device``.
 """
 from __future__ import annotations
 
@@ -49,10 +62,6 @@ from ..lp import (
     table1_instance,
 )
 
-# backends of the reference CLI that later slices bring (ROADMAP queue A)
-NOT_PORTED = {
-    "distributed": "A6 (distributed and cluster)",
-}
 CROSSBAR_BACKENDS = {"epiram": EPIRAM, "taox": TAOX_HFOX}
 
 
@@ -80,8 +89,8 @@ def main(argv=None):
     ap.add_argument("--instances", default=None,
                     help="comma-separated specs for --backend batch")
     ap.add_argument("--backend", default="exact",
-                    choices=["exact", *CROSSBAR_BACKENDS, "batch",
-                             *NOT_PORTED])
+                    choices=["exact", *CROSSBAR_BACKENDS, "distributed",
+                             "batch"])
     ap.add_argument("--device", default="none",
                     choices=["none", *CROSSBAR_BACKENDS],
                     help="with --backend batch: serve the stream through "
@@ -101,9 +110,24 @@ def main(argv=None):
                          "estimates across stream passes, keyed by "
                          "(shape bucket, sparsity fingerprint)")
     ap.add_argument("--cluster", default="off", choices=["auto", "off"],
-                    help="multi-host serving (not ported yet)")
+                    help="multi-host serving: 'auto' initializes the "
+                         "process group from REPRO_COORDINATOR/"
+                         "REPRO_NUM_PROCESSES/REPRO_PROCESS_ID (falling "
+                         "back to single-process when unset) and routes "
+                         "buckets across pods; 'off' serves everything "
+                         "in-process")
     ap.add_argument("--pods", type=int, default=None,
-                    help="route buckets across N pods (not ported yet)")
+                    help="route buckets across N pods (default: the "
+                         "detected process count).  N beyond the live "
+                         "process count creates virtual pods whose "
+                         "buckets the coordinator reroutes")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the cluster's "
+                         "process group and the mesh's groups (default "
+                         "nccl on the card, gloo on the CPU); several "
+                         "ranks on one card need gloo, which NCCL "
+                         "refuses")
     ap.add_argument("--kernel", default="cuda", choices=KERNELS,
                     help="update backend: the hand-written CUDA kernels "
                          "(their plain versions on CPU tensors) or plain "
@@ -139,12 +163,6 @@ def main(argv=None):
     ap.add_argument("--max-iters", type=int, default=40000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.backend in NOT_PORTED:
-        ap.error(f"--backend {args.backend} is not ported yet; ROADMAP "
-                 f"item {NOT_PORTED[args.backend]} brings it")
-    if args.cluster != "off" or args.pods is not None:
-        ap.error(f"--cluster/--pods are not ported yet; ROADMAP item "
-                 f"{NOT_PORTED['distributed']} brings them")
     crossbar_backend = (args.backend in CROSSBAR_BACKENDS
                         or (args.backend == "batch"
                             and args.device != "none"))
@@ -173,6 +191,21 @@ def main(argv=None):
                  "--device (single solves estimate the norm once by "
                  "construction; the crossbar stream programs every cell "
                  "per instance, so there is nothing to reuse)")
+    if args.megakernel and args.backend == "distributed":
+        ap.error("--megakernel does not apply to --backend distributed "
+                 "(the sharded loop steps: two all-reduces a step)")
+    if args.pods is not None and args.backend != "batch":
+        ap.error("--pods only applies to --backend batch (distributed "
+                 "spans processes through the global mesh directly)")
+    if (args.cluster != "off" or args.pods is not None) \
+            and args.device != "none":
+        ap.error("--cluster/--pods do not combine with --device: the "
+                 "crossbar batch path is single-process")
+
+    from ..runtime import cluster as cluster_mod
+
+    info = cluster_mod.init_cluster(args.cluster, backend=args.dist_backend,
+                                    device=args.torch_device)
 
     opts = PDHGOptions(max_iters=args.max_iters, tol=args.tol,
                        check_every=100, seed=args.seed,
@@ -182,10 +215,12 @@ def main(argv=None):
                        refine_rounds=args.refine_rounds,
                        refine_tol=args.refine_tol)
     if args.backend == "batch":
-        return _serve_stream(args, opts)
+        return _serve_stream(args, opts, info)
     lp = load_instance(args.instance, seed=args.seed)
     led = None
-    if crossbar_backend:
+    if args.backend == "distributed":
+        res = _solve_distributed(args, lp, opts)
+    elif crossbar_backend:
         dev = CROSSBAR_BACKENDS[args.backend]
         if args.ecc != 1:
             dev = dataclasses.replace(dev, ecc=args.ecc)
@@ -219,10 +254,26 @@ def main(argv=None):
     return res
 
 
-def _serve_stream(args, opts):
+def _solve_distributed(args, lp, opts):
+    """``--backend distributed``: ``solve_dist`` over the local mesh of
+    the process group's ranks, or ``solve_dist_auto`` over the cluster's
+    with ``--cluster auto``."""
+    from ..distributed import solve_dist, solve_dist_auto
+    from ..runtime.mesh import make_local_mesh
+
+    if args.cluster != "off":
+        return solve_dist_auto(lp, opts, cluster=args.cluster,
+                               device=args.torch_device)
+    mesh = make_local_mesh(backend=args.dist_backend,
+                           device=args.torch_device)
+    return solve_dist(lp, mesh, opts)
+
+
+def _serve_stream(args, opts, info):
     """``--backend batch``: the reference's per-instance lines and, for
-    exact streams, its ``stream:`` line."""
-    from ..runtime import BatchSolver
+    exact streams, its ``stream:`` line (and ``cluster:`` line when the
+    buckets are routed)."""
+    from ..runtime import BatchSolver, ClusterBatchSolver
 
     specs = (args.instances or args.instance).split(",")
     lps = [load_instance(s.strip(), seed=args.seed + i)
@@ -255,9 +306,16 @@ def _serve_stream(args, opts):
         return reports
     if args.sparse:
         lps = [lp.sparsified() for lp in lps]
-    solver = BatchSolver(opts, async_dispatch=not args.sync,
-                         norm_reuse=args.norm_reuse,
-                         torch_device=args.torch_device)
+    n_pods = args.pods if args.pods is not None else info.num_processes
+    if n_pods > 1 or info.is_multiprocess:
+        solver = ClusterBatchSolver(opts, async_dispatch=not args.sync,
+                                    n_pods=n_pods,
+                                    norm_reuse=args.norm_reuse,
+                                    torch_device=args.torch_device)
+    else:
+        solver = BatchSolver(opts, async_dispatch=not args.sync,
+                             norm_reuse=args.norm_reuse,
+                             torch_device=args.torch_device)
     results = solver.solve_stream(lps)
     for lp, r in zip(lps, results):
         line = (f"instance={r.name} shape={lp.K.shape} "
@@ -275,6 +333,11 @@ def _serve_stream(args, opts):
           f"collect={st['collect_s']:.3f}s "
           f"host_stack_bytes=dense:{st['dense_stack_bytes']}"
           f"/sparse:{st['sparse_stack_bytes']}")
+    if "routing" in st:
+        print(f"cluster: pod={st['pod']}/{st['n_pods']} "
+              f"local_buckets={st['n_local_buckets']} "
+              f"rerouted={st['rerouted_buckets']} "
+              f"routing={st['routing']}")
     return results
 
 

@@ -39,6 +39,14 @@ enqueues check windows round-robin across the pending buckets; each
 bucket's loop reads its stream once a window (``active.any()``), so the
 card always has the other buckets' windows queued.  ``async_dispatch=
 False`` serves one bucket at a time; both give the same numbers.
+
+With a ``mesh`` (``runtime.mesh``), every rank of it serves the same
+stream: each bucket's padded batch is a multiple of the ``batch_axes``
+ranks, each rank solves its contiguous share of the lanes (no
+collective during the solve), and the shares are gathered in bucket
+order once every bucket has finished, so every rank returns the whole
+stream's results.  The hooks ``_route``/``_bucket_served``/
+``_gather_remote`` let ``runtime.cluster`` route whole buckets to pods.
 """
 from __future__ import annotations
 
@@ -284,6 +292,20 @@ def lane_seed(seed: int, position: int) -> int:
     lane's position (distinct positions give unrelated streams)."""
     ss = np.random.SeedSequence([int(seed) % (1 << 63), int(position)])
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def seeded_lane_draws(seeds: Sequence[int], mb: int, nb: int, dtype,
+                      device) -> LaneDraws:
+    """Each lane's start from its own generator (seeded ``seeds[i]``):
+    x0 (nb,), then y0 (mb,); the norm estimate's shared seeded start;
+    the generators as ``program`` (the crossbar pipeline draws each
+    lane's programming error from them next)."""
+    gens = [torch.Generator(device=device).manual_seed(k) for k in seeds]
+    x0 = torch.stack([torch.randn(nb, generator=g, dtype=dtype,
+                                  device=device) for g in gens])
+    y0 = torch.stack([torch.randn(mb, generator=g, dtype=dtype,
+                                  device=device) for g in gens])
+    return LaneDraws(x0, y0, default_start(mb + nb, dtype, device), gens)
 
 
 # -------------------------------------------------------------- pipeline ---
@@ -647,13 +669,16 @@ class BatchSolver:
     value instead of the full estimate; the twin is built on the cold
     pass, so warm streams stay at zero compiles.
 
-    ``torch_device`` is the hardware (default the card); the reference's
-    ``mesh`` serving is ROADMAP item A6.
+    ``torch_device`` is the hardware (default the card, or the
+    ``mesh``'s device).  ``mesh`` shards each bucket's lanes over the
+    ranks of ``batch_axes`` (see the module's docstring): every rank of
+    the mesh serves the same stream and returns every result.
     """
 
     supports_sparse = True
 
     def __init__(self, opts: PDHGOptions = PDHGOptions(), *,
+                 mesh=None, batch_axes: Tuple[str, ...] = ("data",),
                  min_bucket: int = MIN_BUCKET,
                  sigma_read: float = 0.0,
                  tile: Optional[Tuple[int, int]] = None,
@@ -668,6 +693,8 @@ class BatchSolver:
             # cache signature
             opts = dataclasses.replace(opts, kernel=kernel)
         self.opts = opts
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
         self.min_bucket = min_bucket
         self.sigma_read = float(sigma_read)
         self.tile = None if tile is None else (int(tile[0]), int(tile[1]))
@@ -675,13 +702,16 @@ class BatchSolver:
         self.donate_min_bytes = int(donate_min_bytes)
         self.transfer_sanitize = bool(transfer_sanitize)
         self.norm_reuse = bool(norm_reuse)
-        self.torch_device = resolve_device(torch_device)
+        self.torch_device = (mesh.device if mesh is not None
+                             and torch_device is None
+                             else resolve_device(torch_device))
         self._cache = {}
         self._norm_cache: dict = {}
         self._seeded_idxs: set = set()
         self._streams: list = []
         self.cache_hits = 0
         self.cache_misses = 0
+        self._draws: Optional[Callable] = None
         self.last_stream_stats: dict = {}
 
     # -- subclass hooks -----------------------------------------------
@@ -707,8 +737,21 @@ class BatchSolver:
 
     # -- pipeline cache -----------------------------------------------
 
+    def _batch_quantum(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(self.batch_axes)
+
     def _padded_batch(self, n_items: int) -> int:
-        return 1 << (n_items - 1).bit_length()
+        pow2 = 1 << (n_items - 1).bit_length()
+        return _ceil_to(pow2, self._batch_quantum())
+
+    def _local_lanes(self, B: int) -> slice:
+        """This rank's share of a padded batch of ``B`` lanes."""
+        share = B // self._batch_quantum()
+        lo = 0 if self.mesh is None else \
+            self.mesh.index(self.batch_axes) * share
+        return slice(lo, lo + share)
 
     def _cache_key(self, shape_sig, B: int, dtype, donate: bool):
         return (shape_sig, B, _dtype_name(dtype), bool(donate),
@@ -719,7 +762,9 @@ class BatchSolver:
                  self.opts.norm_override, self.opts.norm_backend),
                 self.tile,
                 self._device_signature(),
-                None)                        # the reference's mesh (A6)
+                None if self.mesh is None else
+                (tuple(self.mesh.axis_names),
+                 tuple(self.mesh.devices.shape), self.batch_axes))
 
     def _compile(self, key, make: Callable):
         hit = self._cache.get(key)
@@ -800,13 +845,8 @@ class BatchSolver:
                                    dtype=dtype, device=dev)
 
         if draws is None:
-            gens = [torch.Generator(device=dev).manual_seed(k) for k in keys]
-            x0 = torch.stack([torch.randn(nb, generator=g, dtype=dtype,
-                                          device=dev) for g in gens])
-            y0 = torch.stack([torch.randn(mb, generator=g, dtype=dtype,
-                                          device=dev) for g in gens])
-            v0 = default_start(mb + nb, dtype, dev)
-            program = gens
+            x0, y0, v0, program = seeded_lane_draws(keys, mb, nb, dtype,
+                                                    dev)[:4]
         else:
             picks = [draws(p, mb, nb) for p in positions]
             x0 = stacked([d.x0 for d in picks])
@@ -892,15 +932,18 @@ class BatchSolver:
             if all(v is not None for v in cached):
                 rho_seeds = self._upload(
                     [np.asarray(cached + [cached[0]] * (B - len(group)))])[0]
-        seeded = rho_seeds is not None
         # batch padding repeats the first instance; extras are dropped
-        filler = [group[0]] * (B - len(group))
-        keys = self._instance_keys(idxs, n_total, B)
-        positions = list(idxs) + [n_total + j
-                                  for j in range(B - len(idxs))]
+        lanes = self._local_lanes(B)
+        if rho_seeds is not None:
+            rho_seeds = rho_seeds[lanes]
+        seeded = rho_seeds is not None
+        members = (group + [group[0]] * (B - len(group)))[lanes]
+        keys = self._instance_keys(idxs, n_total, B)[lanes]
+        positions = (list(idxs) + [n_total + j
+                                   for j in range(B - len(idxs))])[lanes]
         if isinstance(sig, tuple):                       # ("ell", wf, wa)
             _, wf, wa = sig
-            stacked = stack_problems_ell(group + filler, m=mb, n=nb,
+            stacked = stack_problems_ell(members, m=mb, n=nb,
                                          wf=wf, wa=wa)
             stats["sparse_stack_bytes"] += sum(a.nbytes for a in stacked)
             arrays = self._upload(stacked, int_fields=(1, 3))
@@ -908,7 +951,7 @@ class BatchSolver:
             exe_fn = (lambda s: self._executable_ell(
                 mb, nb, wf, wa, B, dtype, donate=donate, seeded=s))
         elif sig is not None:                            # bare int nnz
-            stacked = stack_problems_sparse(group + filler, m=mb, n=nb,
+            stacked = stack_problems_sparse(members, m=mb, n=nb,
                                             nnz=sig)
             stats["sparse_stack_bytes"] += sum(a.nbytes for a in stacked)
             arrays = self._upload(stacked, int_fields=(1,))
@@ -916,9 +959,8 @@ class BatchSolver:
             exe_fn = (lambda s: self._executable_sparse(
                 mb, nb, sig, B, dtype, donate=donate, seeded=s))
         else:
-            group = [lp.densified() for lp in group]
-            filler = [group[0]] * (B - len(group))
-            stacked = stack_problems(group + filler, m=mb, n=nb)
+            stacked = stack_problems([lp.densified() for lp in members],
+                                     m=mb, n=nb)
             stats["dense_stack_bytes"] += sum(a.nbytes for a in stacked)
             arrays = self._upload(stacked)
             donate = self._donate(arrays[0].nbytes)
@@ -991,36 +1033,52 @@ class BatchSolver:
 
     def _finish(self, job, lps, results, stats) -> None:
         with self._stream(job["k"]):
-            self._collect(job["out"], job["bucket"][0], job["idxs"], lps,
-                          results)
+            out = job["out"]
+            if self.mesh is not None:
+                from ..distributed.sharding import gather_blocks
+
+                out = tuple(gather_blocks(t, self.mesh, self.batch_axes)
+                            for t in out)
+            self._collect(out, job["bucket"][0], job["idxs"], lps, results)
+            self._bucket_served(job["bucket"], job["idxs"], out)
         stats["bucket_windows"].append(
             {"bucket": job["bucket"], "lanes": len(job["idxs"]),
              "windows": job["windows"]})
 
-    def solve_stream(self, lps: Sequence[StandardLP],
-                     draws: Optional[Callable] = None):
-        """Solve a heterogeneous stream; results come back in input order.
+    # -- multi-pod routing hooks (runtime.cluster overrides these) ----
 
-        Every bucket is stacked, uploaded and started (its prep and first
-        window enqueued) before any result is read back; then the
-        buckets' windows are enqueued round-robin, one host read per
-        window each, and each bucket is collected when its last lane has
-        stopped.  ``async_dispatch=False`` serves one bucket at a time.
-        ``draws(position, m_bucket, n_bucket) -> interop.Draws`` injects
-        every lane's draws (filler lanes included) instead of the
-        per-lane generators.
-        """
-        lps = list(lps)
-        buckets = self._group_buckets(lps)
-        results: List[Optional[object]] = [None] * len(lps)
-        self._seeded_idxs = set()
-        stats = {"n_buckets": len(buckets), "n_local_buckets": len(buckets),
-                 "dense_stack_bytes": 0,
-                 "sparse_stack_bytes": 0, "donated_buckets": 0,
-                 "norm_seeded_buckets": 0,
-                 "dispatch_s": 0.0, "collect_s": 0.0, "compiles": 0,
-                 "bucket_windows": []}
-        compiles0 = sanitize.compile_counts()["compiles"]
+    def _route(self, buckets: dict) -> Tuple[dict, dict]:
+        """Split buckets into (served here, served by other pods).  The
+        base scheduler is single-pod: everything is local."""
+        return buckets, {}
+
+    def _bucket_served(self, key, idxs: Sequence[int], out) -> None:
+        """Called once per locally served bucket with its device outputs
+        (after collection): the cluster solver publishes here."""
+
+    def _gather_remote(self, remote: dict, lps, results, stats) -> None:
+        """Collect buckets served by other pods.  Single-pod: none."""
+        if remote:
+            raise RuntimeError("base BatchSolver cannot gather remote "
+                               f"buckets: {sorted(remote)}")
+
+    def _serve(self, buckets: dict, lps, results, stats, draws) -> None:
+        """Serve ``buckets`` ({key: stream positions}) into ``results``:
+        every bucket is stacked, uploaded and started before any result
+        is read back, then the buckets' windows are enqueued round-robin
+        and each is collected when its last lane has stopped (one bucket
+        at a time without ``async_dispatch``).  With a mesh the finished
+        buckets are gathered and collected in bucket order after the
+        last, so that every rank issues the same collectives in the same
+        order."""
+        done = []
+
+        def finish(job):
+            if self.mesh is None:
+                self._finish(job, lps, results, stats)
+            else:
+                done.append(job)
+
         t0 = time.perf_counter()
         jobs = []
         for k, (((mb, nb), sig), idxs) in enumerate(buckets.items()):
@@ -1032,21 +1090,50 @@ class BatchSolver:
                    "idxs": idxs}
             if self.async_dispatch:
                 if self._step(job):
-                    self._finish(job, lps, results, stats)
+                    finish(job)
                 else:
                     jobs.append(job)
             else:
                 while not self._step(job):
                     pass
-                self._finish(job, lps, results, stats)
-        stats["dispatch_s"] = time.perf_counter() - t0
+                finish(job)
+        stats["dispatch_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         while jobs:
             for job in list(jobs):
                 if self._step(job):
                     jobs.remove(job)
-                    self._finish(job, lps, results, stats)
-        stats["collect_s"] = time.perf_counter() - t0
+                    finish(job)
+        for job in sorted(done, key=lambda j: j["k"]):
+            self._finish(job, lps, results, stats)
+        stats["collect_s"] += time.perf_counter() - t0
+
+    def solve_stream(self, lps: Sequence[StandardLP],
+                     draws: Optional[Callable] = None):
+        """Solve a heterogeneous stream; results come back in input order.
+
+        The locally routed buckets are served as ``_serve`` says;
+        ``async_dispatch=False`` serves one bucket at a time.  Buckets
+        routed to other pods (``runtime.cluster``) are gathered after
+        the local work.  ``draws(position, m_bucket, n_bucket) ->
+        interop.Draws`` injects every lane's draws (filler lanes
+        included) instead of the per-lane generators.
+        """
+        lps = list(lps)
+        buckets = self._group_buckets(lps)
+        mine, remote = self._route(buckets)
+        results: List[Optional[object]] = [None] * len(lps)
+        self._seeded_idxs = set()
+        self._draws = draws
+        stats = {"n_buckets": len(buckets), "n_local_buckets": len(mine),
+                 "dense_stack_bytes": 0,
+                 "sparse_stack_bytes": 0, "donated_buckets": 0,
+                 "norm_seeded_buckets": 0,
+                 "dispatch_s": 0.0, "collect_s": 0.0, "compiles": 0,
+                 "bucket_windows": []}
+        compiles0 = sanitize.compile_counts()["compiles"]
+        self._serve(mine, lps, results, stats, draws)
+        self._gather_remote(remote, lps, results, stats)
         stats["compiles"] = (sanitize.compile_counts()["compiles"]
                              - compiles0)
         self.last_stream_stats = stats
@@ -1055,12 +1142,12 @@ class BatchSolver:
 
 def solve_stream(lps: Sequence[StandardLP],
                  opts: PDHGOptions = PDHGOptions(), *,
-                 solver: Optional[BatchSolver] = None, torch_device=None,
-                 draws: Optional[Callable] = None
+                 mesh=None, solver: Optional[BatchSolver] = None,
+                 torch_device=None, draws: Optional[Callable] = None
                  ) -> List[BatchItemResult]:
     """One-shot entry point; pass ``solver`` to keep the pipeline cache
     warm across calls.  Runs on the card unless ``torch_device`` says
-    otherwise."""
+    otherwise; ``mesh`` shards each bucket's lanes over its ranks."""
     if solver is None:
-        solver = BatchSolver(opts, torch_device=torch_device)
+        solver = BatchSolver(opts, mesh=mesh, torch_device=torch_device)
     return solver.solve_stream(lps, draws=draws)

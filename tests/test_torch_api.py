@@ -30,11 +30,6 @@ REF_ONLY = {
     "interpret": "Pallas interpret mode: a port wrapper takes its plain "
                  "version for CPU tensors and its kernel for CUDA ones",
     "use_pallas": "the Pallas switch of the ELL product (as interpret)",
-    "xsum": "psum hook of the sharded path (ROADMAP A6)",
-    "ysum": "psum hook of the sharded path (ROADMAP A6)",
-    "xsum_fn": "psum hook of the sharded loop (ROADMAP A6)",
-    "ysum_fn": "psum hook of the sharded loop (ROADMAP A6)",
-    "mesh": "device mesh of the distributed path (ROADMAP A6)",
     "norm_seeded": "the reference compiles a seeded twin of each bucket "
                    "pipeline; the port's pipeline takes rho_seeds at run "
                    "time, one object for both",
@@ -63,14 +58,14 @@ PORT_ONLY = {
     "row_len_a": "ELL row lengths of the adjoint form (B4/B5)",
     "active": "the loop's live-lane mask: the megakernels skip stopped "
               "lanes",
+    "backend": "the torch.distributed backend (nccl or gloo) of the "
+               "process group init_cluster makes",
 }
 
 # names of the reference that the port does not have
 MISSING = {
     ("core", "JNP_UPDATES"): "its port is engine.TORCH_UPDATES (the "
                              "backend is named 'torch')",
-    ("core", "sharded_operator"): "ROADMAP A6",
-    ("core.engine", "sharded_operator"): "ROADMAP A6",
     ("kernels", "interpret"): "Pallas interpret mode",
     ("kernels", "interpret_default"): "Pallas interpret mode",
     ("kernels", "ops"): "the reference's wrappers over Pallas calls: the "
@@ -79,24 +74,19 @@ MISSING = {
                         "keeps its plain version beside the kernel",
     ("kernels.sparse_mvm", "ell_matvec_ref"): "its port is "
                                               "ell_matvec_plain",
-    ("launch", "make_mesh"): "mesh export (ROADMAP A6)",
-    ("launch", "make_production_mesh"): "mesh export (ROADMAP A6)",
     ("lp", "mps"): "not copied yet (ROADMAP A7)",
     ("lp", "simplex"): "not copied yet (ROADMAP A7)",
     ("runtime.sanitize", "install"): "JAX's transfer guard; the port's "
                                      "guard is torch's sync debug mode",
     ("runtime.sanitize", "supported"): "JAX's transfer guard (as install)",
 }
-# runtime.compat shims JAX versions only, and the mesh and cluster
-# exports belong to the distributed path (ROADMAP A6)
-RUNTIME_A6 = ("ClusterBatchSolver", "batch_axes", "cluster", "compat",
-              "constrain", "get_abstract_mesh", "init_cluster",
-              "make_cluster_mesh", "make_local_mesh", "make_mesh",
-              "make_production_mesh", "mesh", "set_mesh", "shard_map",
-              "use_mesh")
-MISSING.update({("runtime", n): "runtime.compat (JAX only) or a mesh and "
-                               "cluster export (ROADMAP A6)"
-                for n in RUNTIME_A6})
+# runtime.compat shims JAX versions only: the port's meshes are
+# runtime.mesh, its collectives explicit all-reduces, and nothing sets an
+# ambient mesh or constrains a sharding
+RUNTIME_COMPAT = ("batch_axes", "compat", "constrain", "get_abstract_mesh",
+                  "set_mesh", "shard_map", "use_mesh")
+MISSING.update({("runtime", n): "runtime.compat (JAX only)"
+                for n in RUNTIME_COMPAT})
 
 # the port's own modules, with no counterpart in the reference
 PORT_OWN = ("_device", "interop", "kernels._build")

@@ -116,7 +116,19 @@ def test_cli_solves_the_default_instance_on_cpu():
     (["--backend", "batch", "--cluster", "auto"], "A6"),
 ], ids=["distributed-A6", "batch-pods-A6", "batch-cluster-A6"])
 def test_cli_names_the_roadmap_item_of_unported_backends(capsys, argv, item):
-    with pytest.raises(SystemExit) as exc:
-        cli.main([*argv, "--torch-device", "cpu"])
-    assert exc.value.code == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+    """ROADMAP item A6 ported these: the distributed backend and the
+    cluster flags no longer exit naming the item, and each solves the
+    default instance on the CPU (``--pods 2`` through a virtual pod,
+    ``--cluster auto`` without a cluster env in one process)."""
+    from repro_torch.runtime import cluster
+
+    cluster._reset_for_tests()
+    try:
+        out = cli.main([*argv, "--torch-device", "cpu"])
+    finally:
+        cluster._reset_for_tests()
+    res = out[0] if isinstance(out, list) else out
+    assert res.status == "optimal"
+    captured = capsys.readouterr()
+    assert f"ROADMAP item {item}" not in captured.err
+    assert ("cluster: pod=0/2" in captured.out) == ("--pods" in argv)
