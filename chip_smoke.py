@@ -7,6 +7,7 @@
         # 40000 iterations, at each scale of the stream shapes, to find
         # the largest at which every instance reaches tol (prints one
         # "probe" line a scale)
+    python3 chip_smoke.py --lm            # only phase 9, the LM serving
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -66,7 +67,19 @@ Phases, in order; any failure raises and exits non-zero:
    iterations, ``x`` within 1e-9; ``compressed_psum`` within its bound
    of the exact all-reduce), the time inside the all-reduces printed;
    and two pods of ``ClusterBatchSolver`` over a ``DirectoryTransport``
-   on the small dense stream, bitwise one ``BatchSolver``'s.
+   on the small dense stream, bitwise one ``BatchSolver``'s;
+9. the LM serving path (``repro_torch.models``, ``train.serve_step``,
+   no hand-written kernel: every launch count stays 0): for each of the
+   ten configs at its published widths, 2 layers, f32, token-by-token
+   ``decode_step`` against ``forward`` at the reference test's
+   tolerance; then in bf16 ``granite-3-8b`` whole (8 prompts of 1024
+   tokens through ``make_prefill_step``, the cache filled by
+   ``lm.prefill_cache``, 64 greedy tokens through ``make_serve_step``
+   from the prompts' last token, a cache of 1088 slots), every
+   other config that fits the card whole (8 x 256 tokens, 32 new), and
+   ``grok-1-314b`` at 2 layers (printed as reduced): prefill and decode
+   times, tokens/s, peak memory, and the decode path's last logits
+   against prefill's.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -1894,6 +1907,258 @@ def phase_distributed(stepped):
                 str(four[0]["budget/launches"]))}
 
 
+# the LM serving phase: (a) decode against forward at every config's
+# published widths, depth cut to LM_CHECK_LAYERS, in f32, at the
+# reference test's tolerance (tests/test_models.py:81-82); (b) serving in
+# bf16 at full depth: the main cell (granite-3-8b, LM_MAIN_BATCH x
+# LM_MAIN_PROMPT-token prompts, LM_MAIN_NEW greedy tokens), every other
+# config that fits the card whole (LM_BATCH x LM_PROMPT, LM_NEW), and
+# grok-1-314b (631 GB in bf16) at its full width and LM_REDUCED layers
+LM_MAIN = "granite-3-8b"
+LM_MAIN_BATCH, LM_MAIN_PROMPT, LM_MAIN_NEW = 8, 1024, 64
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 256, 32
+LM_REDUCED = {"grok-1-314b": 2}
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 2, 12
+LM_ATOL, LM_RTOL = 2e-2, 0.05
+# the main cell's decode steps traced by torch.profiler (after the first
+# step, before the timed ones): the card's busy share of a step
+LM_PROFILE_STEPS = 4
+
+
+def _lm_order():
+    """The registry's configs, the largest (grok-1) last."""
+    from repro_torch.configs import ARCH_NAMES
+
+    return ([a for a in ARCH_NAMES if a not in LM_REDUCED]
+            + [a for a in ARCH_NAMES if a in LM_REDUCED])
+
+
+def _lm_inputs(cfg, params, toks):
+    """The prompt as ``forward`` takes it: the vision and audio configs
+    feed embeddings (the embedding rows of the tokens, so the decode
+    path, which takes tokens, sees the same input)."""
+    if cfg.frontend in ("vision", "audio"):
+        return {"embeddings": params["embed"][toks.long()]}
+    return {"tokens": toks}
+
+
+def _lm_decode_check(arch: str) -> dict:
+    """(a): ``forward`` against token-by-token ``decode_step`` at the
+    published widths, LM_CHECK_LAYERS layers, f32.  The MoE configs run
+    with a capacity that drops nothing (``n_experts / top_k``): capacity
+    routing drops by group size, which a prompt's forward and a
+    one-token decode do not share, so the published capacity's gap is
+    printed beside it and not held to the tolerance."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CHECK_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    B, S = LM_CHECK_BATCH, LM_CHECK_TOKENS
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+    def gap(c):
+        with torch.no_grad():
+            full = forward(params, c, **_lm_inputs(c, params, toks))
+            cache = init_cache(c, B, S, device="cuda")
+            dec = torch.stack([decode_step(params, c, toks[:, t:t + 1],
+                                           cache)[0] for t in range(S)],
+                              dim=1)
+        scale = float(full.abs().max())
+        excess = float(((dec - full).abs() - LM_ATOL * scale
+                        - LM_RTOL * full.abs()).max())
+        return (float((dec - full).abs().max()), scale, excess,
+                bool(torch.isfinite(dec).all() and torch.isfinite(full).all()))
+
+    row = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in _leaves(params))}
+    if cfg.mlp == "moe":
+        row["published_capacity_max_abs_err"] = gap(cfg)[0]
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+        row["capacity_factor"] = cfg.capacity_factor
+    err, scale, excess, finite = gap(cfg)
+    row.update(max_abs_err=err, max_abs_logit=scale, finite=finite,
+               ok=finite and excess <= 0)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _device_busy(step, n: int):
+    """Run ``step`` ``n`` times under ``torch.profiler``: (the time of
+    the card's kernels and copies over the wall, the wall in ms).  The
+    share is None when the trace holds no device event; the profiler's
+    own host cost lengthens the wall, so the share is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    return (dev_us / wall_us if dev_us else None), wall_us / 1e3
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _lm_serve(arch: str) -> dict:
+    """(b): one config in bf16 at full depth (or LM_REDUCED's): random
+    weights from a seed on the card, ``make_prefill_step`` over the
+    prompts (timed), the cache filled with all but the prompts' last
+    token (``lm.prefill_cache``, timed), then ``make_serve_step`` from
+    the last prompt token on, a token a step (timed): its first logits
+    are the decode path's at the prompts' end, held beside prefill's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.lm import padded_vocab, prefill_cache
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch)
+    reduced = arch in LM_REDUCED
+    if reduced:
+        cfg = dataclasses.replace(cfg, n_layers=LM_REDUCED[arch])
+    main = arch == LM_MAIN
+    B, P, new = ((LM_MAIN_BATCH, LM_MAIN_PROMPT, LM_MAIN_NEW) if main
+                 else (LM_BATCH, LM_PROMPT, LM_NEW))
+    V = padded_vocab(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = _lm_inputs(cfg, params, toks)
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    prefill(params, {k: v[:, :16] for k, v in batch.items()})  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = init_cache(cfg, B, P + new, device="cuda")
+    t0 = time.perf_counter()
+    prefill_cache(params, cfg, cache,
+                  **{k: v[:, :P - 1] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    tok, out, finite = toks[:, P - 1:], [], [torch.isfinite(last).all()]
+
+    def step():
+        nonlocal tok
+        nxt, logits, _ = serve(params, tok, cache)
+        finite.append(torch.isfinite(logits).all())
+        tok = nxt[:, None]
+        out.append(tok)
+        return logits
+
+    first = step()                  # the prompts' last token
+    busy, busy_ms = (_device_busy(step, LM_PROFILE_STEPS) if main
+                     else (None, None))
+    timed = new - len(out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        logits = step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    finite = torch.stack(finite).all()
+    gen_toks = torch.cat(out, dim=1)
+    agree = float((first.float() - last.float()).abs().max()
+                  / last.float().abs().max())
+    argmax_agree = float((first.argmax(-1) == last.argmax(-1))
+                         .float().mean())
+    check(bool(finite), f"lm {arch}: a logit is not finite")
+    check(tuple(last.shape) == (B, V) and tuple(logits.shape) == (B, V),
+          f"lm {arch}: logits {tuple(last.shape)} / {tuple(logits.shape)}, "
+          f"expected {(B, V)}")
+    check(tuple(gen_toks.shape) == (B, new)
+          and int(gen_toks.min()) >= 0 and int(gen_toks.max()) < V,
+          f"lm {arch}: greedy tokens outside the vocabulary")
+    row = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "reduced": (f"n_layers {cfg.n_layers} of "
+                       f"{get_config(arch).n_layers}" if reduced else None),
+           "params": sum(p.numel() for p in _leaves(params)),
+           "batch": B, "prompt": P, "new_tokens": new,
+           "cache_slots": P + new,
+           "cache_bytes": sum(c.numel() * c.element_size()
+                              for c in _leaves(cache)),
+           "prefill_ms": prefill_s * 1e3,
+           "cache_fill_ms": fill_s * 1e3,
+           "decode_ms_per_token": decode_s * 1e3 / timed,
+           "decode_tokens_per_s": B * timed / decode_s,
+           "decode_steps_timed": timed,
+           # every weight and the cache read once a step (the MoE
+           # dispatch reads every expert), over the card's memory rate
+           "decode_floor_ms": (sum(p.numel() * p.element_size()
+                                   for p in _leaves(params))
+                               + sum(c.numel() * c.element_size()
+                                     for c in _leaves(cache)))
+           / HBM_BYTES_PER_S * 1e3,
+           "decode_device_busy_share": busy,
+           "decode_profiled_ms_per_token": (busy_ms / LM_PROFILE_STEPS
+                                            if main else None),
+           "prefill_tokens_per_s": B * P / prefill_s,
+           "decode_vs_prefill_rel_err": agree,
+           "decode_vs_prefill_argmax_agree": argmax_agree,
+           "pad_row_tokens": int((gen_toks >= cfg.vocab).sum()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, cache, batch, last, logits, first
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_serve() -> dict:
+    """The LM substrate's serving path (``repro_torch.models``,
+    ``train.serve_step``): (a) for every config, then (b).  It reaches
+    no hand-written kernel (its products are torch matmuls, as the
+    reference's are plain jnp): the launch counts, zeroed before it and
+    read after, must stay 0."""
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    for arch in _lm_order():
+        t0 = time.perf_counter()
+        row = _lm_decode_check(arch)
+        row["wall_s"] = time.perf_counter() - t0
+        print("lm check " + json.dumps(row), flush=True)
+        check(row["ok"], f"lm {arch}: decode disagrees with forward beyond "
+              f"atol={LM_ATOL}*max|logits|, rtol={LM_RTOL}")
+    for arch in [LM_MAIN] + [a for a in _lm_order() if a != LM_MAIN]:
+        t0 = time.perf_counter()
+        row = _lm_serve(arch)
+        row["wall_s"] = time.perf_counter() - t0
+        print("lm serve " + json.dumps(row), flush=True)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"lm serving launched a hand-written kernel: {counts}")
+    print(f"lm serve: phase {time.perf_counter() - t_phase:.1f}s, "
+          f"hand-written kernel launches {sum(counts.values())}",
+          flush=True)
+    return {"lm serve": counts}
+
+
 # the full-width path on which each kernel's ``launches`` is read: the
 # stepped loop runs B1's and B2's step forms, and B1 and B2 themselves
 # run on the host driver, which steps ``engine.pdhg_step``; the stepped
@@ -1926,6 +2191,8 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lm", action="store_true",
+                    help="run only the LM serving phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -1947,6 +2214,11 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if args.lm:
+        phase_lm_serve()
+        print(smi, flush=True)
+        return 0
 
     from repro_torch.kernels import _build
 
@@ -2000,6 +2272,8 @@ def main() -> int:
     del lps
     torch.cuda.empty_cache()
     counts.update(phase_distributed(stepped))
+    torch.cuda.empty_cache()
+    counts.update(phase_lm_serve())
 
     line = []
     extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",

@@ -12,6 +12,9 @@
   crossbar ``DeviceModel`` and a programmed ``EncodedMatrix`` of the
   reference by their fields, so a test can hand the reference's
   conductances to the port.
+* ``params_from_reference`` and ``cache_from_reference`` carry an LM's
+  parameter tree and decode cache (nested dicts of arrays, in the
+  reference's stacked layout) across, a copy a leaf.
 """
 from __future__ import annotations
 
@@ -124,3 +127,35 @@ def from_reference_encoded(enc, device=None, dtype=torch.float64):
         g_pos=t(enc.g_pos), g_neg=t(enc.g_neg), scale=float(enc.scale),
         rows=int(enc.rows), cols=int(enc.cols),
         device=device_from_reference(enc.device), fill=float(enc.fill))
+
+
+def _leaf_tensor(a, device, dtype):
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: no numpy
+        t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.as_tensor(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _tree(tree, device, dtype):
+    return {k: _tree(v, device, dtype) if isinstance(v, dict)
+            else _leaf_tensor(v, device, dtype) for k, v in tree.items()}
+
+
+def params_from_reference(tree, device=None, dtype=None):
+    """The port's parameter tree from the reference's (nested dicts of
+    arrays; each leaf read as numpy): the same keys and shapes as
+    tensors on ``device`` (default: the card), floating leaves cast to
+    ``dtype`` when given."""
+    return _tree(tree, resolve_device(device), dtype)
+
+
+def cache_from_reference(tree, device=None):
+    """The port's decode cache from the reference's (``init_cache``'s
+    tree, each leaf read as numpy) on ``device`` (default: the card),
+    every leaf in its own dtype (int32 lengths, int8 values, f32
+    states)."""
+    return _tree(tree, resolve_device(device), None)

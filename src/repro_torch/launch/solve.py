@@ -215,7 +215,9 @@ def main(argv=None):
                        refine_rounds=args.refine_rounds,
                        refine_tol=args.refine_tol)
     if args.backend == "batch":
-        return _serve_stream(args, opts, info)
+        results = _serve_stream(args, opts, info)
+        cluster_mod.shutdown()      # leave a cluster's process group
+        return results
     lp = load_instance(args.instance, seed=args.seed)
     led = None
     if args.backend == "distributed":
@@ -251,6 +253,7 @@ def main(argv=None):
         print(f"energy: write={led.write_energy_j:.4f}J "
               f"read={led.read_energy_j:.4f}J | latency: "
               f"write={led.write_latency_s:.4f}s read={led.read_latency_s:.4f}s")
+    cluster_mod.shutdown()
     return res
 
 

@@ -1,5 +1,6 @@
-"""LP substrate of the port: containers and generators, copied from
-``repro.lp`` so that the same seed gives byte-identical instances."""
+"""LP substrate of the port: containers, generators, the MPS reader and
+writer and the ground-truth simplex, copied from ``repro.lp`` (numpy
+only) so that the same seed gives byte-identical instances."""
 from .problem import INF, LPProblem, SparseCOO, StandardLP, split_standard_solution
 from .generators import (
     TABLE1_SIZES,
@@ -16,6 +17,7 @@ from .generators import (
     SPARSE_STREAM_SHAPES,
     table1_instance,
 )
+from . import mps, simplex
 
 __all__ = [
     "INF",
@@ -36,4 +38,6 @@ __all__ = [
     "sparse_random_standard_lp",
     "SPARSE_STREAM_SHAPES",
     "table1_instance",
+    "simplex",
+    "mps",
 ]

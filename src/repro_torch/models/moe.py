@@ -1,0 +1,82 @@
+"""Top-k routed mixture-of-experts (OLMoE 64e/top-8, Grok-1 8e/top-2);
+the port of ``repro.models.moe``.
+
+The grouped one-hot dispatch (Shazeer-style, two einsums) over routing
+groups of ``GROUP`` tokens.  Capacity is ``ceil(group_tokens * top_k /
+E * capacity_factor)`` (at least 4); overflowing (token, choice) pairs
+are dropped in the order of the cumsum over the (token, choice)
+flattening, and their residual stream passes through.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import act_fn
+
+GROUP = 512   # tokens per routing group
+
+
+def moe_params_shape(cfg):
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": (d, E),
+        "w1": (E, d, ff),
+        "w3": (E, d, ff),
+        "w2": (E, ff, d),
+    }
+
+
+def _capacity(tokens_per_group: int, top_k: int, n_experts: int,
+              factor: float) -> int:
+    c = math.ceil(tokens_per_group * top_k / n_experts * factor)
+    return max(4, int(c))
+
+
+def moe_block(p, x, cfg):
+    """x (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    g = max(1, T // GROUP)
+    tg = T // g
+    xt = x.reshape(g, tg, d)
+    logits = (xt @ p["router"]).float()                      # (g, tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)              # (g, tg, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    C = _capacity(tg, k, E, cfg.capacity_factor)
+    # expert one-hot per choice: (g, tg, k, E)
+    oh = F.one_hot(top_i, E).float()
+    # position of each (token, choice) within its expert queue
+    pos = torch.cumsum(oh.reshape(g, tg * k, E), dim=1).reshape(
+        g, tg, k, E) * oh - 1.0
+    keep = (pos < C) & (oh > 0)
+    pos = torch.where(keep, pos, 0.0)
+    pos_oh = F.one_hot(pos.long(), C).float()
+    # dispatch (g, tg, E, C) / combine with routing probs folded in
+    kept = oh * keep
+    dispatch = torch.einsum("gske,gskec->gsec", kept, pos_oh)
+    combine = torch.einsum("gske,gskec,gsk->gsec", kept, pos_oh, top_p)
+
+    xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
+    h = act_fn(torch.einsum("egcd,edf->egcf", xin, p["w1"]), cfg.act)
+    h = h * torch.einsum("egcd,edf->egcf", xin, p["w3"])
+    out_e = torch.einsum("egcf,efd->egcd", h, p["w2"])
+    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
+    return out.reshape(B, S, d)
+
+
+def moe_aux_loss(p, x, cfg):
+    """Load-balancing auxiliary loss (Switch-style): E * sum(f_e * p_e)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (x.reshape(-1, d) @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_i = torch.topk(probs, k, dim=-1)[1]
+    frac = torch.mean(F.one_hot(top_i, E).float(), dim=(0, 1))
+    imp = torch.mean(probs, dim=0)
+    return E * torch.sum(frac * imp)

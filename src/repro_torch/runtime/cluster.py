@@ -38,6 +38,7 @@ The transport carries numpy arrays, so routing needs no process group.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import os
 import tempfile
@@ -87,6 +88,33 @@ class ClusterInfo:
 
 
 _INFO: Optional[ClusterInfo] = None
+
+
+class _Teardown:
+    """Leave the process group ``init_cluster`` made: a barrier, so that
+    no rank leaves while another still uses the coordinator's store
+    (rank 0 hosts it, and a rank whose store vanishes under its c10d
+    threads aborts at exit), then ``destroy_process_group``.  Runs once;
+    does nothing once the group is gone."""
+
+    def __init__(self):
+        self.done = False
+
+    def __call__(self) -> None:
+        import torch.distributed as dist
+
+        if self.done:
+            return
+        self.done = True
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        try:
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+
+
+_TEARDOWN: Optional[_Teardown] = None
 
 
 def _env(name: str) -> Optional[str]:
@@ -139,9 +167,11 @@ def init_cluster(mode: str = "auto", *, backend: Optional[str] = None,
     ``"nccl"`` unless ``device`` is the CPU (then ``"gloo"``); pass
     ``"gloo"`` for several processes on one card, which NCCL refuses.
     Safe to call from every entry point -- repeat calls return the first
-    resolution.
+    resolution.  A process group made here is left at exit (``atexit``:
+    a barrier, then ``destroy_process_group``), or earlier through
+    ``shutdown``.
     """
-    global _INFO
+    global _INFO, _TEARDOWN
     if mode not in ("auto", "off"):
         raise ValueError(f"init_cluster mode must be auto|off, got {mode!r}")
     if _INFO is not None:
@@ -166,6 +196,8 @@ def init_cluster(mode: str = "auto", *, backend: Optional[str] = None,
         backend, init_method=f"tcp://{spec['coordinator_address']}",
         world_size=int(spec["num_processes"]),
         rank=int(spec["process_id"]))
+    _TEARDOWN = _Teardown()
+    atexit.register(_TEARDOWN)
     _INFO = ClusterInfo(int(spec["num_processes"]), int(spec["process_id"]),
                         str(spec["coordinator_address"]), True)
     return _INFO
@@ -188,9 +220,19 @@ def pod_id() -> int:
     return _world()[1]
 
 
+def shutdown() -> None:
+    """Run now the teardown ``init_cluster`` registered with ``atexit``
+    (a barrier, then ``destroy_process_group``); nothing when this
+    process made no process group or left it already."""
+    if _TEARDOWN is not None:
+        _TEARDOWN()
+
+
 def _reset_for_tests() -> None:
-    global _INFO
+    global _INFO, _TEARDOWN
+    shutdown()
     _INFO = None
+    _TEARDOWN = None
 
 
 # ------------------------------------------------------------- routing ---

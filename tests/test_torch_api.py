@@ -74,12 +74,21 @@ MISSING = {
                         "keeps its plain version beside the kernel",
     ("kernels.sparse_mvm", "ell_matvec_ref"): "its port is "
                                               "ell_matvec_plain",
-    ("lp", "mps"): "not copied yet (ROADMAP A7)",
-    ("lp", "simplex"): "not copied yet (ROADMAP A7)",
+    ("models.lm", "constrain_tokens"): "runtime.compat's sharding "
+                                       "constraint (JAX only)",
     ("runtime.sanitize", "install"): "JAX's transfer guard; the port's "
                                      "guard is torch's sync debug mode",
     ("runtime.sanitize", "supported"): "JAX's transfer guard (as install)",
 }
+# the training half of repro.train, ported with training
+TRAINING = ("AdafactorConfig", "AdamWConfig", "adafactor_init",
+            "adafactor_update", "adamw_init", "adamw_update", "TrainConfig",
+            "cross_entropy", "init_opt_state", "make_loss_fn",
+            "make_train_step", "opt_state_shapes", "DataConfig",
+            "Prefetcher", "synth_batch", "load_train_state", "place",
+            "save_train_state")
+MISSING.update({("train", n): "training: ROADMAP A8, PR 19"
+                for n in TRAINING})
 # runtime.compat shims JAX versions only: the port's meshes are
 # runtime.mesh, its collectives explicit all-reduces, and nothing sets an
 # ambient mesh or constrains a sharding

@@ -288,3 +288,60 @@ def test_cli_cluster_auto_two_processes(tmp_path):
              for o in outs]
     assert len(lines[0]) == 3 and lines[0] == lines[1]
     assert "cluster: pod=0/2" in outs[0] and "cluster: pod=1/2" in outs[1]
+
+
+@pytest.mark.parametrize("run", range(3))
+def test_cli_cluster_auto_exits_cleanly(run):
+    """The two-process ``--cluster auto --backend distributed`` pair, run
+    three times: every process exits 0 each time.  Rank 0 hosts the
+    process group's store; without the teardown ``init_cluster``
+    registers (a barrier, then ``destroy_process_group``), a rank that
+    outlives it could abort at interpreter exit after a right answer."""
+    port = free_port()
+    procs = [spawn([sys.executable, "-m", "repro_torch.launch.solve",
+                    "--torch-device", "cpu", "--cluster", "auto",
+                    "--backend", "distributed", "--instance", "rand:8x14"],
+                   {"REPRO_COORDINATOR": f"localhost:{port}",
+                    "REPRO_NUM_PROCESSES": "2",
+                    "REPRO_PROCESS_ID": str(r)})
+             for r in range(2)]
+    outs = wait_all(procs, 180)
+    assert [p.returncode for p in procs] == [0, 0]
+    for o in outs:
+        assert "status=optimal" in o, o
+
+
+def test_init_cluster_teardown_is_idempotent(monkeypatch):
+    """The teardown ``init_cluster`` registers with ``atexit`` leaves the
+    process group (``dist.is_initialized()`` false), runs once, and does
+    nothing when the group is already gone."""
+    import atexit
+
+    import torch.distributed as dist
+
+    registered = []
+    monkeypatch.setattr(atexit, "register", registered.append)
+    monkeypatch.setattr(cluster_mod, "detect_env", lambda: {
+        "coordinator_address": f"localhost:{free_port()}",
+        "num_processes": 1, "process_id": 0})
+    cluster_mod._reset_for_tests()
+    try:
+        info = cluster_mod.init_cluster("auto", device="cpu")
+        assert info.initialized and dist.is_initialized()
+        assert len(registered) == 1
+        teardown = registered[0]
+        teardown()
+        assert not dist.is_initialized()
+        teardown()
+        cluster_mod.shutdown()
+        assert not dist.is_initialized()
+        # a group destroyed by someone else: the teardown leaves it alone
+        cluster_mod._reset_for_tests()
+        cluster_mod.init_cluster("auto", device="cpu")
+        dist.destroy_process_group()
+        registered[1]()
+        assert not dist.is_initialized()
+    finally:
+        cluster_mod._reset_for_tests()
+        if dist.is_initialized():
+            dist.destroy_process_group()

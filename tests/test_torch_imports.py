@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The port stands alone: nothing in ``src/repro_torch``,
+``chip_smoke.py`` or the port's examples (``examples/torch_*.py``)
+imports JAX or the JAX package ``repro``."""
 import ast
 import os
 import pathlib
@@ -23,7 +24,8 @@ def _imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0]
 
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -38,7 +40,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import sys\n"
         "import repro_torch.launch.solve, repro_torch.core, "
         "repro_torch.kernels, repro_torch.interop, repro_torch.runtime, "
-        "repro_torch.crossbar\n"
+        "repro_torch.crossbar, repro_torch.models, repro_torch.configs, "
+        "repro_torch.train, repro_torch.lp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
