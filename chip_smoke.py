@@ -8,6 +8,7 @@
         # the largest at which every instance reaches tol (prints one
         # "probe" line a scale)
     python3 chip_smoke.py --lm            # only phase 9, the LM serving
+    python3 chip_smoke.py --train         # only phase 10, the LM training
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -79,7 +80,20 @@ Phases, in order; any failure raises and exits non-zero:
    other config that fits the card whole (8 x 256 tokens, 32 new), and
    ``grok-1-314b`` at 2 layers (printed as reduced): prefill and decode
    times, tokens/s, peak memory, and the decode path's last logits
-   against prefill's.
+   against prefill's;
+10. the LM training path (``train.make_train_step``, the optimizers,
+   ``train.synth_batch``; autograd over torch matmuls, no hand-written
+   kernel and no CUDA graph: every launch count and ``engine.GRAPHS``
+   stay as they were): for each of the ten configs at its published
+   widths, 2 layers, f32, 2 x 64 tokens (MoE at a dropless capacity),
+   one AdamW step whose loss equals ``cross_entropy(forward(...))``,
+   finite gradients, the f32 gradients against an f64 copy's and
+   ``remat=True`` against ``remat=False`` (``grok-1-314b`` at 1 layer
+   in bf16 with Adafactor, loss and finiteness only); then
+   ``starcoder2-3b`` (AdamW) and ``granite-3-8b`` (Adafactor) trained
+   whole in bf16 with remat, 8 x 1024 tokens a step for 10 steps: ms a
+   step, tokens/s, MFU, peak memory, loss falling; on granite one
+   ``microbatch=2`` step against the plain step from the same state.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -1991,11 +2005,13 @@ def _lm_decode_check(arch: str) -> dict:
     return row
 
 
-def _device_busy(step, n: int):
-    """Run ``step`` ``n`` times under ``torch.profiler``: (the time of
-    the card's kernels and copies over the wall, the wall in ms).  The
-    share is None when the trace holds no device event; the profiler's
-    own host cost lengthens the wall, so the share is a lower bound."""
+def _profiled(fn):
+    """``fn()`` once under ``torch.profiler``: (its result, the card's
+    busy share of the wall or None when the trace holds no device event,
+    the wall in ms, device ms by kernel name).  The profiler's own host
+    cost lengthens the wall, so the share is a lower bound."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2004,13 +2020,26 @@ def _device_busy(step, n: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            step()
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    return (dev_us / wall_us if dev_us else None), wall_us / 1e3
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) * 1e3 / wall_us if by_name else None
+    return out, busy, wall_us / 1e3, by_name
+
+
+def _device_busy(step, n: int):
+    """Run ``step`` ``n`` times under ``torch.profiler``: (the time of
+    the card's kernels and copies over the wall, the wall in ms), as
+    ``_profiled`` gives them."""
+    def steps():
+        for _ in range(n):
+            step()
+
+    return _profiled(steps)[1:3]
 
 
 def _leaves(tree):
@@ -2159,6 +2188,334 @@ def phase_lm_serve() -> dict:
     return {"lm serve": counts}
 
 
+# the LM training phase: (a) every config at its published widths,
+# TRAIN_CHECK_LAYERS layers, f32, TRAIN_CHECK_BATCH x TRAIN_CHECK_SEQ
+# tokens from synth_batch, MoE at a dropless capacity (grok-1-314b's 2
+# layers, its weights, gradients and an f64 copy do not fit the card: 1
+# layer in bf16 with Adafactor, loss and finiteness only); (b) the
+# full-width training cells, whole models in bf16 with remat,
+# TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS steps, each with
+# launch.train's default optimizer where it fits (granite-3-8b's AdamW
+# moments, 65 GB in f32, do not fit beside its weights and gradients:
+# Adafactor, the reference's low-memory option)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+TRAIN_REDUCED = {"grok-1-314b": 1}
+# the train step's loss against cross_entropy(forward) under no_grad:
+# the same products, so f32 rounding (bf16 for the reduced config)
+TRAIN_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TRAIN_F64_TOL = 1e-4       # max|g32 - g64| <= tol * max|g64|, a leaf
+TRAIN_REMAT_TOL = 1e-6     # max|g_remat - g| <= tol * max|g|, a leaf
+TRAIN_CELLS = (("starcoder2-3b", "adamw"), ("granite-3-8b", "adafactor"))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+TRAIN_TIMED_FROM = 3       # ms a step: the median of steps 3..10
+TRAIN_PROFILED = 1         # step 2 (not timed) runs under torch.profiler
+# granite's microbatch=2 step against the plain one from the same state:
+# the reference test's bounds (tests/test_train.py:62-65)
+TRAIN_MICRO, TRAIN_MICRO_LOSS_RTOL, TRAIN_MICRO_PARAM_TOL = 2, 1e-5, 5e-3
+BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def _device_batch(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def _leaf_rel_err(got, ref) -> float:
+    """max over leaves of max|got - ref| / max|ref| (each leaf its own
+    scale; a leaf of zeros must be zero)."""
+    worst = 0.0
+    for (_, a), (_, b) in zip(_paths(got), _paths(ref)):
+        err = float((a.double() - b.double()).abs().max())
+        scale = float(b.double().abs().max())
+        worst = max(worst, err / scale if scale > 0
+                    else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def _paths(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def _train_check(arch: str) -> dict:
+    """(a): one config at its published widths, TRAIN_CHECK_LAYERS
+    layers, f32 (TRAIN_REDUCED: fewer layers, bf16, Adafactor)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.train import (DataConfig, TrainConfig, cross_entropy,
+                                   init_opt_state, make_loss_fn,
+                                   make_train_step, synth_batch)
+    from repro_torch.train.train_step import value_and_grad
+
+    reduced = arch in TRAIN_REDUCED
+    cfg = dataclasses.replace(
+        get_config(arch),
+        n_layers=TRAIN_REDUCED.get(arch, TRAIN_CHECK_LAYERS),
+        dtype="bfloat16" if reduced else "float32")
+    if cfg.mlp == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    tcfg = TrainConfig(optimizer="adafactor" if reduced else "adamw")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    batch = _device_batch(synth_batch(DataConfig(
+        cfg.vocab, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, seed=0,
+        embeddings_dim=cfg.d_model
+        if cfg.frontend in ("vision", "audio") else 0), 0))
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    row = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "optimizer": tcfg.optimizer, "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in _leaves(params)),
+           "reduced": (f"n_layers {cfg.n_layers}, bf16, Adafactor"
+                       if reduced else None)}
+    with torch.no_grad():
+        plain = float(cross_entropy(forward(params, cfg, **inputs),
+                                    batch["labels"], tcfg.z_loss))
+    _, grads = value_and_grad(make_loss_fn(cfg, tcfg), params, batch)
+    row["grads_finite"] = all(bool(torch.isfinite(g).all())
+                              for g in _leaves(grads))
+    if not reduced:
+        _, g_plain = value_and_grad(
+            make_loss_fn(cfg, dataclasses.replace(tcfg, remat=False)),
+            params, batch)
+        row["remat_rel_err"] = _leaf_rel_err(grads, g_plain)
+        del g_plain
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        p64 = _map_tree(lambda t: t.double(), params)
+        b64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in batch.items()}
+        _, g64 = value_and_grad(make_loss_fn(cfg64, tcfg), p64, b64)
+        row["f64_rel_err"] = _leaf_rel_err(grads, g64)
+        del p64, g64
+    del grads
+    torch.cuda.empty_cache()
+    _, _, metrics = make_train_step(cfg, tcfg)(
+        params, init_opt_state(params, tcfg), batch)
+    row.update(loss=float(metrics["loss"]), loss_no_grad=plain,
+               loss_rel_err=abs(float(metrics["loss"]) - plain) / abs(plain))
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _train_micro_check(cfg, params, opt, batch, step, tcfg) -> dict:
+    """One ``microbatch=TRAIN_MICRO`` step and then the plain step from
+    the same parameters and state (the parameters are saved on the host:
+    a second copy beside the microbatched step's f32 accumulators does
+    not fit the card).  Returns (the comparison, and the parameters and
+    state after the plain step, which is the cell's first)."""
+    import torch
+
+    from repro_torch.train import make_train_step
+
+    host = _map_tree(lambda t: t.to("cpu", copy=True), params)
+    opt0 = _map_tree(torch.clone, opt)
+    micro = make_train_step(cfg, dataclasses.replace(
+        tcfg, microbatch=TRAIN_MICRO))
+    torch.cuda.reset_peak_memory_stats()
+    _, _, m_micro = micro(params, opt0, batch)
+    micro_peak = torch.cuda.max_memory_allocated()
+    p_micro = _map_tree(torch.clone, params)
+    del opt0
+    for (_, dst), (_, src) in zip(_paths(params), _paths(host)):
+        dst.copy_(src)
+    del host
+    params, opt, m = step(params, opt, batch)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for (_, a), (_, b) in zip(_paths(params), _paths(p_micro)))
+    del p_micro
+    torch.cuda.empty_cache()
+    loss, loss_micro = float(m["loss"]), float(m_micro["loss"])
+    return ({"loss": loss, "loss_micro": loss_micro,
+             "loss_rel_err": abs(loss - loss_micro) / abs(loss),
+             "param_max_abs_diff": diff, "micro_peak_bytes": micro_peak},
+            params, opt)
+
+
+def _kernel_kinds(by_name) -> dict:
+    """Device ms by kind of kernel: GEMMs by their operand type (cuBLAS's
+    bf16 ``nvjet`` kernels; its f32 ``xmma ... f32 ... ffma`` ones, the
+    f32 attention with TF32 off), elementwise and reduction kernels, and
+    the rest."""
+    kinds = {"gemm_bf16": 0.0, "gemm_f32": 0.0, "elementwise": 0.0,
+             "reduce": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        if "nvjet" in name or ("gemm" in name and "bf16" in name):
+            kinds["gemm_bf16"] += ms
+        elif "gemm" in name:
+            kinds["gemm_f32"] += ms
+        elif "elementwise" in name:
+            kinds["elementwise"] += ms
+        elif "reduce" in name.lower():
+            kinds["reduce"] += ms
+        else:
+            kinds["other"] += ms
+    return kinds
+
+
+def _train_cell(arch: str, optimizer: str) -> dict:
+    """(b): one config whole in bf16 with remat, TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens from the Prefetcher."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import (DataConfig, Prefetcher, TrainConfig,
+                                   init_opt_state, make_train_step)
+
+    cfg = get_config(arch)
+    tcfg = TrainConfig(optimizer=optimizer, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, gen, device="cuda")
+    opt = init_opt_state(params, tcfg)
+    step = make_train_step(cfg, tcfg)
+    data = Prefetcher(DataConfig(
+        cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+        embeddings_dim=cfg.d_model
+        if cfg.frontend in ("vision", "audio") else 0))
+    row = {"arch": arch, "optimizer": optimizer, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "remat": tcfg.remat,
+           "params": sum(p.numel() for p in _leaves(params)),
+           "active_params": cfg.active_param_count(),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS}
+    losses, times = [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = _device_batch(next(data))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0 and arch == TRAIN_CELLS[-1][0]:
+                row["micro"], params, opt = _train_micro_check(
+                    cfg, params, opt, batch, step, tcfg)
+                losses.append(row["micro"]["loss"])
+                torch.cuda.reset_peak_memory_stats()
+            elif i == TRAIN_PROFILED:
+                (params, opt, m), busy, wall_ms, by_name = _profiled(
+                    partial(step, params, opt, batch))
+                losses.append(float(m["loss"]))
+                row.update(profiled_step=i + 1, device_busy_share=busy,
+                           profiled_ms=wall_ms,
+                           device_ms_by_kind=_kernel_kinds(by_name),
+                           top_kernels_ms=[[n, ms] for n, ms in
+                                           by_name.most_common(8)])
+            else:
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        data.close()
+    ms = statistics.median(times[TRAIN_TIMED_FROM - 1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row.update(
+        ms_per_step=ms, step_ms=[t * 1e3 for t in times],
+        tokens_per_s=tokens / (ms / 1e3),
+        mfu=6.0 * row["active_params"] * tokens / (ms / 1e3
+                                                   * BF16_PEAK_FLOPS),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        loss_first=losses[0], loss_last=losses[-1], losses=losses)
+    del params, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_train() -> dict:
+    """The LM substrate's training path: (a) for every config, then (b).
+    It reaches no hand-written kernel (autograd over torch matmuls, as
+    the reference's value_and_grad over plain jnp products) and starts
+    no CUDA graph: the launch counts, zeroed before it, stay 0, and
+    ``engine.GRAPHS`` does not move."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    graphs_before = graphs()
+    # the microbatched granite step holds the bf16 weights, their f32
+    # accumulators and a microbatch's bf16 gradients (65 GB): segments
+    # that grow in place keep the free memory in one piece
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        _phase_lm_train_rows()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"lm training launched a hand-written kernel: {counts}")
+    check(graphs() == graphs_before,
+          f"lm training moved engine.GRAPHS: {graphs_before} -> {graphs()}")
+    print(f"lm train: phase {time.perf_counter() - t_phase:.1f}s, "
+          f"hand-written kernel launches {sum(counts.values())}, "
+          f"CUDA graphs {graphs()}", flush=True)
+    return {"lm train": counts}
+
+
+def _phase_lm_train_rows() -> None:
+    """Phase 10's rows, printed and checked as they come."""
+    import math
+
+    import torch
+
+    for arch in _lm_order():
+        t0 = time.perf_counter()
+        row = _train_check(arch)
+        row["wall_s"] = time.perf_counter() - t0
+        print("lm train check " + json.dumps(row), flush=True)
+        tol = TRAIN_LOSS_RTOL[row["dtype"]]
+        check(row["grads_finite"], f"lm train {arch}: a gradient is not "
+              "finite")
+        check(math.isfinite(row["loss"]) and row["loss_rel_err"] <= tol,
+              f"lm train {arch}: the step's loss {row['loss']} against "
+              f"cross_entropy(forward) {row['loss_no_grad']}: beyond "
+              f"rtol={tol}")
+        if row["reduced"] is None:
+            rel = row["f64_rel_err"]
+            check(rel <= TRAIN_F64_TOL,
+                  f"lm train {arch}: f32 gradients {rel:.3g} of max|g64| "
+                  f"from the f64 copy's, over {TRAIN_F64_TOL}")
+            rel = row["remat_rel_err"]
+            check(rel <= TRAIN_REMAT_TOL,
+                  f"lm train {arch}: remat gradients {rel:.3g} of max|g| "
+                  f"from the plain ones, over {TRAIN_REMAT_TOL}")
+    for arch, optimizer in TRAIN_CELLS:
+        t0 = time.perf_counter()
+        row = _train_cell(arch, optimizer)
+        row["wall_s"] = time.perf_counter() - t0
+        print("lm train " + json.dumps(row), flush=True)
+        check(all(math.isfinite(v) for v in row["losses"]),
+              f"lm train {arch}: a loss is not finite: {row['losses']}")
+        check(row["loss_last"] < row["loss_first"],
+              f"lm train {arch}: the loss did not fall in "
+              f"{TRAIN_STEPS} steps: {row['losses']}")
+        if "micro" in row:
+            mc = row["micro"]
+            check(mc["loss_rel_err"] <= TRAIN_MICRO_LOSS_RTOL
+                  and mc["param_max_abs_diff"] < TRAIN_MICRO_PARAM_TOL,
+                  f"lm train {arch}: microbatch={TRAIN_MICRO} against the "
+                  f"plain step: loss rel {mc['loss_rel_err']:.3g} (rtol "
+                  f"{TRAIN_MICRO_LOSS_RTOL}), parameters "
+                  f"{mc['param_max_abs_diff']:.3g} (< "
+                  f"{TRAIN_MICRO_PARAM_TOL})")
+        torch.cuda.empty_cache()
+
+
 # the full-width path on which each kernel's ``launches`` is read: the
 # stepped loop runs B1's and B2's step forms, and B1 and B2 themselves
 # run on the host driver, which steps ``engine.pdhg_step``; the stepped
@@ -2193,6 +2550,8 @@ def main() -> int:
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--lm", action="store_true",
                     help="run only the LM serving phase")
+    ap.add_argument("--train", action="store_true",
+                    help="run only the LM training phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -2215,8 +2574,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.lm:
-        phase_lm_serve()
+    if args.lm or args.train:
+        if args.lm:
+            phase_lm_serve()
+        if args.train:
+            phase_lm_train()
         print(smi, flush=True)
         return 0
 
@@ -2274,6 +2636,8 @@ def main() -> int:
     counts.update(phase_distributed(stepped))
     torch.cuda.empty_cache()
     counts.update(phase_lm_serve())
+    torch.cuda.empty_cache()
+    counts.update(phase_lm_train())
 
     line = []
     extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",

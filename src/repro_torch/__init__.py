@@ -18,7 +18,9 @@ Ported so far:
     runtime/     batch serving, meshes, cluster serving, sanitizers
     distributed/ the sharded solve over ``torch.distributed``
     models/      the LM substrate (ten architectures), with ``configs/``
-    train/       serving steps (prefill, decode, greedy generation)
-    launch/      ``python -m repro_torch.launch.solve``
+    train/       optimizers, the train step, data, checkpoints, and the
+                 serving steps (prefill, decode, greedy generation)
+    launch/      ``python -m repro_torch.launch.solve``, ``.train`` and
+                 ``.dryrun`` (on a fake process group)
 """
 __version__ = "0.1.0"

@@ -14,7 +14,10 @@
   conductances to the port.
 * ``params_from_reference`` and ``cache_from_reference`` carry an LM's
   parameter tree and decode cache (nested dicts of arrays, in the
-  reference's stacked layout) across, a copy a leaf.
+  reference's stacked layout) across, a copy a leaf;
+  ``opt_state_from_reference`` carries an AdamW or Adafactor state.
+  A bf16 leaf may come as ``ml_dtypes``' ``bfloat16`` or as the raw two
+  bytes an entry (``V2``) that a ``.npz`` checkpoint holds.
 """
 from __future__ import annotations
 
@@ -133,6 +136,8 @@ def _leaf_tensor(a, device, dtype):
     a = np.array(a)
     if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: no numpy
         t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    elif a.dtype == np.dtype("V2"):       # bf16 bits, as .npz stores them
+        t = torch.as_tensor(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.as_tensor(a)
     if dtype is not None and t.is_floating_point():
@@ -159,3 +164,15 @@ def cache_from_reference(tree, device=None):
     every leaf in its own dtype (int32 lengths, int8 values, f32
     states)."""
     return _tree(tree, resolve_device(device), None)
+
+
+def opt_state_from_reference(tree, device=None):
+    """The port's optimizer state from the reference's (``adamw_init``'s
+    ``m``/``v``/``step`` or ``adafactor_init``'s ``f``/``step`` tree,
+    each leaf read as numpy) on ``device`` (default: the card): the f32
+    moments as they are, ``step`` an int32 scalar tensor."""
+    dev = resolve_device(device)
+    out = {k: _tree(v, dev, None) for k, v in tree.items() if k != "step"}
+    out["step"] = torch.as_tensor(np.array(tree["step"]), dtype=torch.int32,
+                                  device=dev).reshape(())
+    return out

@@ -1,5 +1,5 @@
-"""Launchers of the port: ``python -m repro_torch.launch.solve``, and the
-mesh constructors (``launch.mesh``)."""
+"""Launchers of the port: ``python -m repro_torch.launch.solve``,
+``.train`` and ``.dryrun``, and the mesh constructors (``launch.mesh``)."""
 from .mesh import make_mesh, make_production_mesh
 
 __all__ = ["make_mesh", "make_production_mesh"]

@@ -55,6 +55,18 @@ def _index(tree, i):
             for k, v in tree.items()}
 
 
+def _unbind(tree):
+    """Every layer of a stacked tree, as ``_index`` gives them, from one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where ``[i]`` a layer would add a full-size zero-filled gradient of
+    the stacked leaf for every layer."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _store(tree, i, new) -> None:
     """Write layer ``i``'s new cache ``new`` into the stacked ``tree``,
     skipping leaves that were already updated in place."""
@@ -324,8 +336,8 @@ def forward_hidden(params, cfg: ModelConfig, tokens=None, embeddings=None,
     block = functools.partial(_block, cfg=cfg)
     if remat and torch.is_grad_enabled():
         block = _remat(block, remat_policy)
-    for i in range(_n_layers(params)):
-        h = block(_index(params["layers"], i), h)
+    for layer_p in _unbind(params["layers"]):
+        h = block(layer_p, h)
     return rms_norm(h, params["final_norm"])
 
 

@@ -80,8 +80,10 @@ def rwkv6_mix(p, x, cfg, state=None, x_tail=None):
     for t in range(S):
         r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
         kv = k_t[..., :, None] * v_t[..., None, :]          # (B,nh,dh,dh)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
-                               state + u[..., :, None] * kv))
+        m = state + u[..., :, None] * kv
+        # einsum does not promote: a wider u (f64 weights) widens m, as
+        # jnp's promotion does in the reference
+        ys.append(torch.einsum("bhk,bhkv->bhv", r_t.to(m.dtype), m))
         state = w_t[..., :, None] * state + kv
     y = torch.stack(ys, dim=1).reshape(B, S, di).to(x.dtype)
     y = rms_norm(y, p["ln_x"]) * g

@@ -9,9 +9,12 @@ a listed difference that no module shows any more fails the last test,
 so the lists stay exact.  Then the calls shaped like the reference's
 that once failed in the port.
 """
+import ast
 import importlib
 import inspect
+import pathlib
 import pkgutil
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from _torch_parity import reference
 
 import repro_torch
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 # parameters the reference takes and the port does not
 REF_ONLY = {
     "key": "a JAX PRNG key: the port draws from torch.Generator objects "
@@ -80,15 +84,6 @@ MISSING = {
                                      "guard is torch's sync debug mode",
     ("runtime.sanitize", "supported"): "JAX's transfer guard (as install)",
 }
-# the training half of repro.train, ported with training
-TRAINING = ("AdafactorConfig", "AdamWConfig", "adafactor_init",
-            "adafactor_update", "adamw_init", "adamw_update", "TrainConfig",
-            "cross_entropy", "init_opt_state", "make_loss_fn",
-            "make_train_step", "opt_state_shapes", "DataConfig",
-            "Prefetcher", "synth_batch", "load_train_state", "place",
-            "save_train_state")
-MISSING.update({("train", n): "training: ROADMAP A8, PR 19"
-                for n in TRAINING})
 # runtime.compat shims JAX versions only: the port's meshes are
 # runtime.mesh, its collectives explicit all-reduces, and nothing sets an
 # ambient mesh or constrains a sharding
@@ -99,16 +94,49 @@ MISSING.update({("runtime", n): "runtime.compat (JAX only)"
 
 # the port's own modules, with no counterpart in the reference
 PORT_OWN = ("_device", "interop", "kernels._build")
+# reference modules read from their source, never imported here:
+# importing repro.launch.dryrun asks XLA for 512 CPU devices
+# (runtime.compat.request_cpu_devices), which a test process must not do
+FROM_SOURCE = {"launch.dryrun": "src/repro/launch/dryrun.py"}
 SHORT = [n[len("repro_torch."):] if "." in n else ""
          for n in sorted(["repro_torch"] + [m.name for m in
                           pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")])]
 
 
+def _from_source(short):
+    """A stand-in for reference module ``short`` built from its source:
+    each top-level function with its parameters (defaults replaced by
+    None, bodies by ``pass``), and its ``__all__`` if it has one."""
+    name = "repro." + short
+    tree = ast.parse((ROOT / FROM_SOURCE[short]).read_text())
+    mod = types.ModuleType(name)
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            args = node.args
+            args.defaults = [ast.Constant(None) for _ in args.defaults]
+            args.kw_defaults = [None if d is None else ast.Constant(None)
+                                for d in args.kw_defaults]
+            for a in (args.posonlyargs + args.args + args.kwonlyargs
+                      + [v for v in (args.vararg, args.kwarg) if v]):
+                a.annotation = None
+            stub = ast.FunctionDef(name=node.name, args=args,
+                                   body=[ast.Pass()], decorator_list=[],
+                                   returns=None, type_params=[])
+            code = ast.fix_missing_locations(ast.Module([stub], []))
+            exec(compile(code, FROM_SOURCE[short], "exec"), mod.__dict__)
+            mod.__dict__[node.name].__module__ = name
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and getattr(node.targets[0], "id", None) == "__all__"):
+            mod.__all__ = ast.literal_eval(node.value)
+    return mod
+
+
 def _modules(short):
     suffix = "." + short if short else ""
-    return (importlib.import_module("repro" + suffix),
-            importlib.import_module("repro_torch" + suffix))
+    ref = (_from_source(short) if short in FROM_SOURCE
+           else importlib.import_module("repro" + suffix))
+    return ref, importlib.import_module("repro_torch" + suffix)
 
 
 def _pairs():

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import repro_torch.launch.solve, repro_torch.core, "
         "repro_torch.kernels, repro_torch.interop, repro_torch.runtime, "
         "repro_torch.crossbar, repro_torch.models, repro_torch.configs, "
-        "repro_torch.train, repro_torch.lp\n"
+        "repro_torch.train, repro_torch.lp, repro_torch.launch.train, "
+        "repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
