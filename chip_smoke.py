@@ -93,7 +93,13 @@ Phases, in order; any failure raises and exits non-zero:
    ``starcoder2-3b`` (AdamW) and ``granite-3-8b`` (Adafactor) trained
    whole in bf16 with remat, 8 x 1024 tokens a step for 10 steps: ms a
    step, tokens/s, MFU, peak memory, loss falling; on granite one
-   ``microbatch=2`` step against the plain step from the same state.
+   ``microbatch=2`` step against the plain step from the same state;
+11. the dry run (``repro_torch.launch.dryrun``) in a process of its own,
+   on the host's CPU (a fake process group of 512 ranks, ``meta``
+   DTensors; it launches nothing on the card): the reference's decode
+   cell, ``starcoder2-3b`` ``decode_32k`` on the 2x16x16 mesh, at 2
+   layers, its peak a device under the reference test's 16 GiB and its
+   bottleneck printed.
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -2531,6 +2537,43 @@ MAIN_PATH_OF = {"dual_update": "host full", "primal_update": "host full",
                 "crossbar_mvm": "host full"}
 
 
+# phase 11: the reference test's decode cell (tests/test_dryrun.py), cut
+# to 2 layers; its artifact goes under build/ (ignored by git)
+DRYRUN_CELL = ("starcoder2-3b", "decode_32k", True)
+DRYRUN_TIMEOUT = 300
+
+
+def phase_dryrun() -> None:
+    arch, shape, multi = DRYRUN_CELL
+    out = os.path.join(HERE, "build", "dryrun_smoke")
+    code = ("from repro_torch.launch import dryrun; "
+            f"dryrun.run_cell({arch!r}, {shape!r}, {multi!r}, {out!r}, "
+            "cfg_overrides={'n_layers': 2})")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=HERE,
+                          capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry run exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    tag = f"{arch}_{shape}_{'2x16x16' if multi else '16x16'}"
+    with open(os.path.join(out, f"{tag}.json")) as f:
+        cell = json.load(f)
+    check("error" not in cell, f"dry run {tag}: {cell.get('error')}")
+    peak = cell["memory"]["peak_per_device_bytes"]
+    check(0 < peak < 16 * 2**30, f"dry run {tag}: peak {peak} bytes a "
+          "device, over the reference test's 16 GiB")
+    rf = cell["roofline"]
+    print(f"dryrun: {tag} (2 layers) peak/dev={peak / 2**30:.3f}GiB "
+          f"({peak} bytes) compute={rf['compute_s']:.3e}s "
+          f"memory={rf['memory_s']:.3e}s "
+          f"collective={rf['collective_s']:.3e}s "
+          f"bottleneck={rf['bottleneck']} trace {cell['trace_s']}s, "
+          f"process {wall:.1f}s (host CPU counts, not device metrics)",
+          flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -2638,6 +2681,7 @@ def main() -> int:
     counts.update(phase_lm_serve())
     torch.cuda.empty_cache()
     counts.update(phase_lm_train())
+    phase_dryrun()
 
     line = []
     extras = ("call_ms", "yardstick_ms", "gemv_ms", "adjoint_ms",

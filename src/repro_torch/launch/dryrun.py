@@ -24,14 +24,19 @@ For each (arch x shape x mesh) cell this driver:
   5. writes a JSON artifact under experiments/dryrun/.
 
 The reference parses XLA's partitioned HLO for the same counts
-(``launch/hlo.py``, not ported: there is no HLO here).  A Python loop
-is already unrolled, so the counts need no trip-count scaling.  The
-reference's XLA-only keys (``xla_cost``, ``compile_s``, ``lower_s``,
-``hlo_estimate``) are not written; ``op_estimate`` holds the per-device
-FLOPs and bytes that ``hlo_estimate`` held, and ``trace_s`` the run's
-wall.  A cell whose step DTensor cannot run (an op without a sharding
-rule) reports FAIL with its error, as the reference's ``run_cell``
-does.
+(``launch/hlo.py``, not ported: there is no HLO here), scaling a loop
+body's counts by its trip count.  The port's Python loops are unrolled
+but for RWKV6's token scan (``models.rwkv6.scan``), whose body runs twice
+and is counted as its trips (``_Costs.repeated``).  The models place
+their activations as the reference's sharding constraints do
+(``runtime.mesh.constrain``, live under the mesh ``run_cell`` installs
+with ``use_mesh``).  The reference's XLA-only keys (``xla_cost``,
+``compile_s``, ``lower_s``, ``hlo_estimate``) are not written;
+``op_estimate`` holds the per-device FLOPs and bytes that
+``hlo_estimate`` held, and ``trace_s`` the run's wall.  A cell whose
+step DTensor cannot run (an op without a sharding rule) reports FAIL
+with its error in the artifact's ``"error"`` key, as the reference's
+``run_cell`` does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -41,6 +46,7 @@ Usage:
 The fake process group is process-global: run one dry-run a process.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,7 +64,9 @@ from ..configs import (
     input_specs,
 )
 from ..models import lm as lm_mod
-from ..runtime.mesh import make_production_mesh
+from ..models import rwkv6 as rwkv_mod
+from ..runtime.mesh import dtensor_mesh, make_production_mesh, placements, \
+    use_mesh
 from ..train.serve_step import make_prefill_step, make_serve_step
 from ..train.train_step import TrainConfig, make_train_step, opt_state_shapes
 
@@ -86,26 +94,38 @@ def _fake_world(world: int = WORLD) -> None:
                                 world_size=world)
 
 
+_REGISTERED = []
+
+
+def _register_strategies() -> None:
+    """DTensor sharding rules the models' ops need and some torch lacks
+    (once a process): ``index_copy_``, the decode cache's slot write
+    (``gqa_decode``, ``mla_decode``), is local to every rank when the
+    written dimension is whole, with the source placed as the cache."""
+    if _REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.index_copy_.default)
+    def _index_copy(self, dim, index, source):
+        dim = dim % len(self.shape)
+        rules = [([Replicate()], [Replicate(), None, Replicate(),
+                                  Replicate()])]
+        for d in range(len(self.shape)):
+            if d != dim:
+                rules.append(([Shard(d)], [Shard(d), None, Replicate(),
+                                           Shard(d)]))
+        return rules
+
+    _REGISTERED.append(True)
+
+
 def _spec_map(fn, tree):
     """Map over a spec tree whose leaves are spec tuples."""
     if isinstance(tree, dict):
         return {k: _spec_map(fn, v) for k, v in tree.items()}
     return fn(tree)
-
-
-def _sanitize(mesh, spec: tuple) -> tuple:
-    """Drop spec axes absent from the mesh (e.g. 'pod' on single-pod)."""
-    names = mesh.axis_names
-    clean = []
-    for s in spec:
-        if s is None:
-            clean.append(None)
-        elif isinstance(s, tuple):
-            t = tuple(a for a in s if a in names)
-            clean.append(t if t else None)
-        else:
-            clean.append(s if s in names else None)
-    return tuple(clean)
 
 
 def _dp_axes(mesh, batch: int):
@@ -157,56 +177,26 @@ def _opt_specs(param_specs, optimizer: str = "adamw"):
 
 # ------------------------------------------------------------ placement ---
 
-# the mesh axes behind each dimension of the DTensor mesh: every spec of
-# the models shards over ("pod", "data") together or over "model", so
-# the multi-pod grid's pod and data axes are one DTensor dimension (the
-# same blocks on every rank, in the same order); DTensor's planner for a
-# three-dimensional mesh takes minutes a cell
-def _dtensor_dims(mesh):
-    return [("pod", "data") if "pod" in mesh.axis_names else ("data",),
-            ("model",)]
-
-
-def _device_mesh(mesh):
-    """The ``DeviceMesh`` of ``mesh``'s grid, one dimension for each
-    entry of ``_dtensor_dims``, over ``mesh``'s own process groups."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    dims = _dtensor_dims(mesh)
-    return DeviceMesh.from_group(
-        [mesh.group(d) for d in dims], "cpu",
-        mesh=torch.as_tensor(mesh.devices).reshape(
-            [mesh.size(d) for d in dims]),
-        mesh_dim_names=tuple("_".join(d) for d in dims))
-
-
-def _placements(mesh, spec):
-    """The DTensor placements of a sanitized spec on ``_device_mesh``."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    dims = _dtensor_dims(mesh)
-    out = [Replicate()] * len(dims)
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            continue
-        axes = axes if isinstance(axes, tuple) else (axes,)
-        if axes not in dims:
-            raise ValueError(f"spec {spec}: axes {axes} are not one "
-                             f"dimension of the DTensor mesh {dims}")
-        out[dims.index(axes)] = Shard(dim)
-    return out
-
-
-def _place(tree, spec_tree, mesh, dmesh):
+def _place(tree, spec_tree, mesh, dmesh, microbatches: int = 1):
     """Each ``meta`` leaf as a ``DTensor`` placed by its spec (sanitized
-    to the mesh's axes)."""
-    from torch.distributed.tensor import distribute_tensor
+    to the mesh's axes).
+
+    ``microbatches`` > 1 places a leading dimension sharded over the data
+    axes as ``_StridedShard``: each rank holds its rows of every one of
+    the train step's microbatches (its ``reshape(nm, b // nm, ...)``), so
+    that the split is a local view with each microbatch sharded as the
+    batch is.  Each rank holds as many rows as under ``Shard(0)``."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     if isinstance(tree, dict):
-        return {k: _place(v, spec_tree[k], mesh, dmesh)
+        return {k: _place(v, spec_tree[k], mesh, dmesh, microbatches)
                 for k, v in tree.items()}
-    return distribute_tensor(tree, dmesh,
-                             _placements(mesh, _sanitize(mesh, spec_tree)))
+    out = placements(mesh, spec_tree)
+    if microbatches > 1:
+        out = [_StridedShard(0, split_factor=microbatches)
+               if p == Shard(0) else p for p in out]
+    return distribute_tensor(tree, dmesh, out)
 
 
 def _local_leaves(tree):
@@ -271,13 +261,24 @@ def _costs_mode():
             self.io_bytes = 0.0
             self.coll_counts = {}
             self.coll_bytes = {}
+            self.scale = 1          # trips of the scan body being run
+
+        @contextlib.contextmanager
+        def repeated(self, n):
+            """Count what runs inside the block as ``n`` runs of it."""
+            saved, self.scale = self.scale, self.scale * n
+            try:
+                yield
+            finally:
+                self.scale = saved
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if out is NotImplemented:
                 return out
             tensors = list(_local_leaves((args, kwargs or {}, out)))
-            if any(isinstance(t, FakeTensor) for t in tensors):
+            if _PROPAGATING[0] or any(isinstance(t, FakeTensor)
+                                      for t in tensors):
                 return out
             name = func._overloadpacket.__name__
             kind = _COLLECTIVE_KINDS.get(name)
@@ -285,37 +286,115 @@ def _costs_mode():
                 # the in-place c10d forms write their first argument
                 b = sum(_nbytes(t) for t in _local_leaves(
                     args[0] if name.endswith("_") else out))
-                self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+                self.coll_counts[kind] = (self.coll_counts.get(kind, 0)
+                                          + self.scale)
                 self.coll_bytes[kind] = (self.coll_bytes.get(kind, 0.0)
-                                         + b * _MULTIPLIER[kind])
+                                         + b * _MULTIPLIER[kind] * self.scale)
                 return out
             formula = flop_registry.get(func._overloadpacket)
             if formula is not None:
-                self.flops += formula(*args, **(kwargs or {}), out_val=out)
+                self.flops += self.scale * formula(
+                    *args, **(kwargs or {}), out_val=out)
             elif name == "mv":      # a GEMV (the LP step's products)
-                self.flops += 2.0 * args[0].numel()
+                self.flops += self.scale * 2.0 * args[0].numel()
             if name not in _NO_IO:
-                self.io_bytes += sum(_nbytes(t) for t in tensors)
+                self.io_bytes += self.scale * sum(_nbytes(t)
+                                                  for t in tensors)
             return out
 
     return _Costs()
 
 
+# > 0 while DTensor derives an op's placements by running its
+# decomposition on global-shape ``meta`` tensors (index_copy_, the decode
+# cache's update, is one): those ops are propagation, not this rank's work
+_PROPAGATING = [0]
+
+
+@contextlib.contextmanager
+def _as_deployed():
+    """Two corrections of DTensor on the dry run's fake group, inside the
+    block.  (1) DTensor redistributes a dimension's shards to another
+    dimension with an all-to-all, except on a "cpu" DeviceMesh, where it
+    all-gathers the whole tensor and keeps its chunk (gloo has no
+    all-to-all); the dry run's mesh is "cpu" only because its tensors
+    are ``meta``, and the fake group has an all-to-all, so the block runs
+    one (``all_to_all_single`` of the chunks), counted and held in memory
+    as the one a deployment runs.  (2) Sharding propagation through a
+    decomposition runs on global-shape tensors outside any fake mode,
+    where neither counter can tell it from this rank's ops:
+    ``_PROPAGATING`` marks it."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    try:    # a torch without propagation through decompositions needs (2) not
+        from torch.distributed.tensor._decompositions import \
+            DecompShardingStrategy as strategy
+    except ImportError:
+        strategy = None
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        # each rank's chunk of shard_dim to that rank, what comes back
+        # concatenated on gather_dim: one all_to_all_single
+        n = mesh.size(mesh_dim)
+        send = torch.stack(torch.chunk(input, n, dim=shard_dim))
+        got = funcol.all_to_all_single(send, None, None, (mesh, mesh_dim))
+        if isinstance(got, funcol.AsyncCollectiveTensor):
+            got = got.wait()
+        return torch.cat(got.unbind(0), dim=gather_dim)
+
+    def marked(*a, **kw):
+        _PROPAGATING[0] += 1
+        try:
+            return propagate(*a, **kw)
+        finally:
+            _PROPAGATING[0] -= 1
+
+    mods = [m for m in (_collective_utils, placement_types)
+            if hasattr(m, "shard_dim_alltoall")]
+    saved = [m.shard_dim_alltoall for m in mods]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    if strategy is not None:
+        propagate = strategy._propagate_through_decomp
+        strategy._propagate_through_decomp = marked
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.shard_dim_alltoall = f
+        if strategy is not None:
+            strategy._propagate_through_decomp = propagate
+
+
+def _mem_tracker():
+    """``MemTracker`` that leaves out the ops ``_PROPAGATING`` marks."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class _Tracker(MemTracker):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _PROPAGATING[0]:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return _Tracker()
+
+
 def _measure(fn, args, mesh, cfg=None, shape=None, lp=None, n_inner=None):
     """Run ``fn(*args)`` once under the counting modes: the reference's
     ``_compile_and_analyze`` for a traced step."""
-    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
 
     arg_leaves = list(_local_leaves(args))
-    mem = MemTracker()
+    mem = _mem_tracker()
     mem.track_external(*arg_leaves)
     costs = _costs_mode()
     t0 = time.perf_counter()
     # tensors the step makes itself (RoPE tables, masks, constants) are
     # replicated, as GSPMD treats a constant; every input stays a DTensor
     # placed by its spec
-    with implicit_replication(), mem, costs:
+    with implicit_replication(), _as_deployed(), mem, costs, \
+            rwkv_mod.counted_scans(costs):
         result = fn(*args)
     trace_s = time.perf_counter() - t0
     out_leaves = list(_local_leaves(result))
@@ -406,7 +485,8 @@ def lower_lm_cell(arch: str, shape_name: str, mesh, sharding_mode="fsdp",
     ok, reason = cell_supported(cfg, shape)
     if not ok:
         return {"skipped": reason}
-    dmesh = _device_mesh(mesh)
+    _register_strategies()
+    dmesh = dtensor_mesh(mesh)
     params_sds = lm_mod.param_shapes(cfg)
     pspecs = lm_mod.partition_specs(cfg, mode=sharding_mode)
     params = _place(params_sds, pspecs, mesh, dmesh)
@@ -416,7 +496,8 @@ def lower_lm_cell(arch: str, shape_name: str, mesh, sharding_mode="fsdp",
         opt = _place(opt_state_shapes(params_sds, tcfg),
                      _opt_specs(pspecs, tcfg.optimizer), mesh, dmesh)
         batch_sds = input_specs(cfg, shape)
-        batch = _place(batch_sds, _batch_specs(batch_sds, dp), mesh, dmesh)
+        batch = _place(batch_sds, _batch_specs(batch_sds, dp), mesh, dmesh,
+                       microbatches=max(1, tcfg.microbatch))
         args = (params, opt, batch)
     elif shape.kind == "prefill":
         step = make_prefill_step(cfg, last_only=prefill_last_only)
@@ -470,14 +551,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         _fake_world()
         mesh = make_production_mesh(multi_pod=multi_pod, pods=2,
                                     backend="fake", device="cpu")
-        if arch in LP_CONFIGS:
-            result = lower_lp_cell(arch, mesh)
-        else:
-            result = lower_lm_cell(
-                arch, shape_name, mesh, sharding_mode=sharding_mode,
-                cfg_overrides=cfg_overrides,
-                prefill_last_only=prefill_last_only,
-                **({"tcfg": tcfg} if tcfg is not None else {}))
+        # the models' activation constraints read the installed mesh, as
+        # the reference's read the one compat.set_mesh installs
+        with use_mesh(mesh):
+            if arch in LP_CONFIGS:
+                result = lower_lp_cell(arch, mesh)
+            else:
+                result = lower_lm_cell(
+                    arch, shape_name, mesh, sharding_mode=sharding_mode,
+                    cfg_overrides=cfg_overrides,
+                    prefill_last_only=prefill_last_only,
+                    **({"tcfg": tcfg} if tcfg is not None else {}))
         result["cell"] = tag
         result["sharding_mode"] = sharding_mode
         if cfg_overrides:

@@ -9,7 +9,8 @@ so that the parity tests hold at f32 rounding.
 Grouped-query attention does not materialise the key/value heads
 repeated to the query heads: the queries are viewed as ``(Hkv, rep)``
 groups against the ``Hkv`` cached heads, the same products and sums as
-the reference's repeat without its copy of the cache.
+the reference's repeat without its copy of the cache.  A ``DTensor``
+(the dry run) takes the reference's route instead (``_heads_over_model``).
 
 Decode caches are written in place: ``gqa_decode`` writes the new slot
 into the cache tensors it is given and returns a dict that holds them.
@@ -21,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..runtime.mesh import axis_size, batch_axes, constrain, is_dtensor
 
 NEG = -1e30
 
@@ -61,6 +64,72 @@ def apply_rope(x, cos, sin):
 
 # ----------------------------------------------------- chunked attention ---
 
+def split_heads(t, n_heads: int, d_head: int):
+    """(..., n_heads * d_head) -> (..., n_heads, d_head), a view.
+
+    A DTensor is pinned, before the view and after it (and so is its
+    gradient), with its batch over the data axes and its heads over
+    "model" when they divide that axis; otherwise whole over "model",
+    since DTensor cannot unflatten a dimension whose shards cut heads."""
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:-1], n_heads, d_head)
+    ba, mid = batch_axes(), [None] * (t.ndim - 2)
+    heads = "model" if n_heads % axis_size("model") == 0 else None
+    t = constrain(t, ba, *mid, heads)
+    return constrain(t.reshape(*t.shape[:-1], n_heads, d_head),
+                     ba, *mid, heads, None)
+
+
+def merge_heads(t):
+    """(..., H, D) -> (..., H * D), a view; pinned as ``split_heads``
+    pins its result."""
+    flat = (*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    if not is_dtensor(t):
+        return t.reshape(flat)
+    ba, mid = batch_axes(), [None] * (t.ndim - 3)
+    heads = "model" if t.shape[-2] % axis_size("model") == 0 else None
+    t = constrain(t, ba, *mid, heads, None)
+    return constrain(t.reshape(flat), ba, *mid, heads)
+
+
+def _repeat_heads(t, rep: int):
+    """(B, S, Hkv, D) -> (B, S, Hkv * rep, D), each head ``rep`` times in
+    a row (``jnp.repeat`` on the head axis)."""
+    if rep == 1:
+        return t
+    B, S, Hkv, D = t.shape
+    return t[:, :, :, None, :].expand(B, S, Hkv, rep, D).reshape(
+        B, S, Hkv * rep, D)
+
+
+def _heads_over_model(q, k, v):
+    """The reference's route for DTensors: k and v repeated to q's heads,
+    then all three with the batch over the data axes and the HEAD axis
+    over "model" (``layers.py:78-84`` of the reference).
+
+    DTensor refuses the plain route's ``(Hkv, rep)`` view of a head axis
+    sharded over 16 ranks whenever Hkv or H does not divide 16 (granite
+    and grok-1: 8 kv heads; starcoder2: 24 heads; qwen3 and minicpm3: 40;
+    hymba: 25).  Head counts that do not divide are sharded unevenly:
+    rank 0 holds ceil(H / 16) heads, the block GSPMD pads each device to.
+    What it costs: where the heads do not divide, ``split_heads`` has
+    gathered the projection over "model" (an all-gather of (B/dp) x S x
+    H x dh a layer for q, Hkv x dh for k and v), and the uneven shard is
+    then a local slice; where they divide, nothing moves.  The repeat
+    moves nothing either (each rank repeats its own kv rows).  Against
+    the reference's cells (PERF.md, section 7): qwen3-14b prefill_32k on
+    16x16 moves 180 GB a device in all, the reference's 280; hymba-1.5b
+    (25 heads, its SSM's heads gathered too) moves 183 against 127."""
+    rep = q.shape[2] // k.shape[2]
+    ba = batch_axes()
+    # the kv heads' own placement pinned on the repeat's result first, so
+    # that its gradient reaches the repeat's view as the view can take it
+    kv = "model" if k.shape[2] % axis_size("model") == 0 else None
+    k, v = (constrain(constrain(_repeat_heads(t, rep), ba, None, kv, None),
+                      ba, None, "model", None) for t in (k, v))
+    return constrain(q, ba, None, "model", None), k, v
+
+
 def chunked_causal_attention(q, k, v, chunk: int = 512,
                              window: int = 0, scale: Optional[float] = None):
     """Flash-style online-softmax attention, O(S * chunk) memory.
@@ -78,19 +147,50 @@ def chunked_causal_attention(q, k, v, chunk: int = 512,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     nkv = max(1, S // chunk)
     ck = S // nkv
+    q_pos = torch.arange(S, device=q.device)
+    if is_dtensor(q):
+        q, k, v = _heads_over_model(q, k, v)
+        qf = (q * scale).float()
+
+        def scores_of(kb):
+            return torch.einsum("bshd,bchd->bhsc", qf, kb)
+
+        def pv_of(p, vb):
+            return torch.einsum("bhsc,bchd->bhsd", p, vb)
+
+        Hkv = H
+    else:
+        # (B, S, Hkv, rep, D): query head h reads kv head h // rep
+        qf = (q * scale).float().reshape(B, S, Hkv, rep, D)
+
+        def scores_of(kb):
+            return torch.einsum("bsgrd,bcgd->bgrsc", qf, kb).reshape(
+                B, H, S, ck)
+
+        def pv_of(p, vb):
+            return torch.einsum("bgrsc,bcgd->bgrsd",
+                                p.reshape(B, Hkv, rep, S, ck),
+                                vb).reshape(B, H, S, Dv)
+
     kc = k.reshape(B, nkv, ck, Hkv, D)
     vc = v.reshape(B, nkv, ck, Hkv, Dv)
-    q_pos = torch.arange(S, device=q.device)
-    # (B, S, Hkv, rep, D): query head h reads kv head h // rep
-    qf = (q * scale).float().reshape(B, S, Hkv, rep, D)
-    m_run = torch.full((B, H, S), NEG, dtype=torch.float32, device=q.device)
-    l_run = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, S, Dv), dtype=torch.float32, device=q.device)
+    if is_dtensor(q):
+        # the running statistics take q's placement: a tensor made from
+        # nothing would be replicated at the global batch and heads
+        q0 = qf[..., 0].permute(0, 2, 1)                      # (B, H, S)
+        m_run = torch.full_like(q0, NEG)
+        l_run = torch.zeros_like(q0)
+        acc = torch.zeros_like(q0[..., None].expand(B, H, S, Dv))
+    else:
+        m_run = torch.full((B, H, S), NEG, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, S, Dv), dtype=torch.float32,
+                          device=q.device)
     for j in range(nkv):
         kb, vb = kc[:, j].float(), vc[:, j].float()
         kv_pos = j * ck + torch.arange(ck, device=q.device)
-        scores = torch.einsum("bsgrd,bcgd->bgrsc", qf, kb).reshape(
-            B, H, S, ck)
+        scores = scores_of(kb)
         mask = q_pos[:, None] >= kv_pos[None, :]
         if window > 0:
             mask &= (q_pos[:, None] - kv_pos[None, :]) < window
@@ -99,9 +199,7 @@ def chunked_causal_attention(q, k, v, chunk: int = 512,
         alpha = torch.exp(m_run - m_new)
         p = torch.exp(scores - m_new[..., None])
         l_run = l_run * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bgrsc,bcgd->bgrsd",
-                          p.reshape(B, Hkv, rep, S, ck), vb)
-        acc = acc * alpha[..., None] + pv.reshape(B, H, S, Dv)
+        acc = acc * alpha[..., None] + pv_of(p, vb)
         m_run = m_new
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
@@ -117,6 +215,16 @@ def decode_attention(q, k_cache, v_cache, cache_len, window: int = 0):
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
     rep = H // Hkv
+    if is_dtensor(q):
+        # the cache keeps its placement (cache_specs: the head-feature
+        # axis over "model"), and q takes it: the grouped view then cuts
+        # no shard, and the scores' partial sums over "model" are
+        # all-reduced, (B/dp) x H x C f32 a layer, where moving the
+        # cache to whole heads would move all of it every step
+        ba = batch_axes()
+        q = constrain(q, ba, None, None, "model")
+        k_cache = constrain(k_cache, ba, None, None, "model")
+        v_cache = constrain(v_cache, ba, None, None, "model")
     qg = (q / math.sqrt(D)).float().reshape(B, Hkv, rep, D)
     scores = torch.einsum("bgrd,bcgd->bgrc", qg, k_cache.float())
     pos = torch.arange(C, device=q.device)
@@ -149,9 +257,9 @@ def gqa_attention(p, x, cfg, positions=None):
     """Full-sequence (training / prefill) GQA attention."""
     B, S, d = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, dh)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, dh)
+    q = split_heads(x @ p["wq"], H, dh)
+    k = split_heads(x @ p["wk"], Hkv, dh)
+    v = split_heads(x @ p["wv"], Hkv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -163,7 +271,7 @@ def gqa_attention(p, x, cfg, positions=None):
         k = apply_rope(k, cos, sin)
     o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk,
                                  window=cfg.window)
-    return o.reshape(B, S, H * dh) @ p["wo"], (k, v)
+    return merge_heads(o) @ p["wo"], (k, v)
 
 
 def _quantize_kv(t):
@@ -196,9 +304,9 @@ def gqa_decode(p, x, cfg, cache):
     B, S, d = x.shape
     assert S == 1
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, 1, H, dh)
-    k = (x @ p["wk"]).reshape(B, 1, Hkv, dh)
-    v = (x @ p["wv"]).reshape(B, 1, Hkv, dh)
+    q = split_heads(x @ p["wq"], H, dh)
+    k = split_heads(x @ p["wk"], Hkv, dh)
+    v = split_heads(x @ p["wv"], Hkv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -234,7 +342,7 @@ def gqa_decode(p, x, cfg, cache):
         o = decode_attention(q, cache["k"], cache["v"], pos + 1,
                              window=window)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": pos + 1}
-    return o.reshape(B, 1, H * dh) @ p["wo"], new_cache
+    return merge_heads(o) @ p["wo"], new_cache
 
 
 # ------------------------------------------------------------- gated MLP ---

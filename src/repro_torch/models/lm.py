@@ -11,9 +11,13 @@ Python loop that indexes the stacked leaves.
 
 Sharding: ``partition_specs`` and ``cache_specs`` give the reference's
 PartitionSpec trees with each spec as a tuple of axis names (the form
-``distributed.sharding`` uses).  Nothing here constrains an activation's
-placement: the reference's constraints are no-ops without an ambient
-mesh, and the port has none.
+``distributed.sharding`` uses).  Activations are constrained where the
+reference constrains them (``constrain_tokens`` at the embedding, the
+hidden state around each block, the logits over "model"), and the
+residual between a layer's two sublayers, through
+``runtime.mesh.constrain``: under the mesh the dry run installs it
+redistributes the ``DTensor`` it is given; on plain tensors, every run
+on the CPU or the card, it returns its argument itself.
 
 Decode caches are updated in place: ``decode_step`` writes each layer's
 new slot and state into the stacked cache tensors it is given and
@@ -29,6 +33,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from .._device import resolve_device
+from ..runtime.mesh import batch_axes as _batch_axes
+from ..runtime.mesh import constrain as _constrain
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
@@ -47,6 +53,11 @@ from .layers import (
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def constrain_tokens(x):
+    """``x`` with its leading (batch) dimension over the data axes."""
+    return _constrain(x, _batch_axes(), *([None] * (x.ndim - 1)))
 
 
 def _index(tree, i):
@@ -301,8 +312,16 @@ def _mlp_apply(p, x, cfg):
 
 
 def _block(layer_p, h, cfg):
+    ba = _batch_axes()
+    h = _constrain(h, ba, None, None)
     h = h + _mixer_apply(layer_p["mixer"], rms_norm(h, layer_p["ln1"]), cfg)
-    return h + _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg)
+    # the port's one constraint more than the reference's: DTensor carries
+    # the output projection's partial sums over "model" through the
+    # residual add into the MLP (which then gathers its weights whole),
+    # where GSPMD reduces them into the residual's pinned placement
+    h = _constrain(h, ba, None, None)
+    h = h + _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg)
+    return _constrain(h, ba, None, None)
 
 
 # the matmuls that a remat policy keeps (the reference's
@@ -333,6 +352,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens=None, embeddings=None,
         h = embeddings.to(_dtype(cfg))
     else:
         h = params["embed"][tokens.long()]
+    h = constrain_tokens(h)
     block = functools.partial(_block, cfg=cfg)
     if remat and torch.is_grad_enabled():
         block = _remat(block, remat_policy)
@@ -344,9 +364,9 @@ def forward_hidden(params, cfg: ModelConfig, tokens=None, embeddings=None,
 def apply_head(params, h):
     """hidden (..., d) -> logits (..., V)."""
     head = params.get("lm_head")
-    if head is None:
-        return h @ params["embed"].T
-    return h @ head
+    logits = h @ params["embed"].T if head is None else h @ head
+    spec = [_batch_axes()] + [None] * (logits.ndim - 2) + ["model"]
+    return _constrain(logits, *spec)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeddings=None,
@@ -432,15 +452,18 @@ def _mixer_decode(p, x, cfg, cache):
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """tokens (B, 1) + stacked cache -> (logits (B, V), cache); the
     cache's tensors are updated in place and the same cache returned."""
-    h = params["embed"][tokens.long()]
+    h = constrain_tokens(params["embed"][tokens.long()])
+    ba = _batch_axes()
     for i in range(_n_layers(params)):
         layer_p = _index(params["layers"], i)
         hn = rms_norm(h, layer_p["ln1"])
         mix_out, new_cache = _mixer_decode(layer_p["mixer"], hn, cfg,
                                            _index(cache, i))
         _store(cache, i, new_cache)
-        h = h + mix_out
+        # the residual pinned after each sublayer, as in _block
+        h = _constrain(h + mix_out, ba, None, None)
         h = h + _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg)
+        h = _constrain(h, ba, None, None)
     h = rms_norm(h, params["final_norm"])
     return apply_head(params, h)[:, 0, :], cache
 

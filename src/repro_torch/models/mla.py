@@ -17,13 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.mesh import batch_axes, constrain, is_dtensor
 from .layers import (
     _cache_slot,
     apply_rope,
     chunked_causal_attention,
     decode_attention,
+    merge_heads,
     rms_norm,
     rope_angles,
+    split_heads,
 )
 
 
@@ -46,12 +49,12 @@ def _project(p, x, cfg, positions):
     H, dh = cfg.n_heads, cfg.d_head
     kvr, dr = cfg.kv_lora_rank, cfg.rope_head_dim
     cq = rms_norm(x @ p["w_dq"], p["q_norm"])
-    q = (cq @ p["w_uq"]).reshape(B, S, H, dh + dr)
+    q = split_heads(cq @ p["w_uq"], H, dh + dr)
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     ckv = x @ p["w_dkv"]
     latent = rms_norm(ckv[..., :kvr], p["kv_norm"])
     k_rope = ckv[..., kvr:].reshape(B, S, 1, dr)
-    kv = (latent @ p["w_ukv"]).reshape(B, S, H, 2 * dh)
+    kv = split_heads(latent @ p["w_ukv"], H, 2 * dh)
     k_nope, v = kv[..., :dh], kv[..., dh:]
     cos, sin = rope_angles(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -63,13 +66,11 @@ def _project(p, x, cfg, positions):
 
 def _mla_full(p, x, cfg, positions=None):
     """Full-sequence MLA: (out, the compressed latents ``ckv``)."""
-    B, S, _ = x.shape
     pos = positions if positions is not None else torch.arange(
-        S, device=x.device)
+        x.shape[1], device=x.device)
     q, k, v, ckv = _project(p, x, cfg, pos)
     o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
-    H, dh = cfg.n_heads, cfg.d_head
-    return o.reshape(B, S, H * dh) @ p["wo"], ckv
+    return merge_heads(o) @ p["wo"], ckv
 
 
 def mla_attention(p, x, cfg, positions=None):
@@ -89,15 +90,24 @@ def mla_decode(p, x, cfg, cache):
     C = ckv_cache.shape[1]
     ckv_cache.index_copy_(1, _cache_slot(pos, C, rolling=False),
                           ckv.to(ckv_cache.dtype))
-    # reconstruct K/V for the whole cache from the latents
-    latent = rms_norm(ckv_cache[..., :kvr], p["kv_norm"])
-    k_rope_c = ckv_cache[..., kvr:].reshape(B, C, 1, dr)
+    # reconstruct K/V for the whole cache from the latents (a DTensor's
+    # latents whole over "model" once, for both slices)
+    ckv_all = constrain(ckv_cache, batch_axes(), None, None)
+    latent = rms_norm(ckv_all[..., :kvr], p["kv_norm"])
+    k_rope_c = ckv_all[..., kvr:].reshape(B, C, 1, dr)
     cos, sin = rope_angles(torch.arange(C, device=x.device), dr,
                            cfg.rope_theta)
     k_rope_c = apply_rope(k_rope_c, cos, sin)
-    kv = (latent @ p["w_ukv"]).reshape(B, C, H, 2 * dh)
+    w_ukv = p["w_ukv"]
+    if is_dtensor(w_ukv):
+        # the latents expand at every cached position each step, a
+        # product far larger than its weight: the weight is gathered
+        # whole and every "model" rank makes the product, where the
+        # heads' view (40 do not divide 16) would gather the product
+        w_ukv = constrain(w_ukv, None, None)
+    kv = split_heads(latent @ w_ukv, H, 2 * dh)
     k_full = torch.cat([kv[..., :dh], k_rope_c.expand(B, C, H, dr)], dim=-1)
     v_full = kv[..., dh:]
     o = decode_attention(q, k_full, v_full, pos + 1)
     new_cache = {"ckv": ckv_cache, "len": pos + 1}
-    return o.reshape(B, 1, H * dh) @ p["wo"], new_cache
+    return merge_heads(o) @ p["wo"], new_cache

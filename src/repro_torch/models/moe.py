@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime.mesh import axis_size, batch_axes, constrain, is_dtensor
 from .layers import act_fn
 
 GROUP = 512   # tokens per routing group
@@ -35,6 +36,22 @@ def _capacity(tokens_per_group: int, top_k: int, n_experts: int,
     return max(4, int(c))
 
 
+def _group_spec(g: int, xt):
+    """Where a DTensor's routing groups (g, tg, d) lie under the dry
+    run's mesh: the groups over the data axes when they divide them
+    (prefill and training: every group's dispatch, experts and combine
+    local to its rank, the expert weights gathered as FSDP gathers any
+    other), else the tokens of the one group (decode: the dispatched
+    tokens are summed over the data axes).  The experts' inputs and
+    outputs are pinned there too, with whole features: DTensor otherwise
+    shards the experts over the data axes and the capacity slots over
+    "model", which its views of the combine cannot follow."""
+    if not is_dtensor(xt):
+        return (None, None)
+    ba = batch_axes()
+    return (ba, None) if g % axis_size(ba) == 0 else (None, ba)
+
+
 def moe_block(p, x, cfg):
     """x (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
@@ -43,6 +60,8 @@ def moe_block(p, x, cfg):
     g = max(1, T // GROUP)
     tg = T // g
     xt = x.reshape(g, tg, d)
+    gspec = _group_spec(g, xt)
+    xt = constrain(xt, *gspec, None)
     logits = (xt @ p["router"]).float()                      # (g, tg, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, k, dim=-1)              # (g, tg, k)
@@ -63,11 +82,13 @@ def moe_block(p, x, cfg):
     combine = torch.einsum("gske,gskec,gsk->gsec", kept, pos_oh, top_p)
 
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
+    xin = constrain(xin, None, gspec[0], None, None)
     h = act_fn(torch.einsum("egcd,edf->egcf", xin, p["w1"]), cfg.act)
     h = h * torch.einsum("egcd,edf->egcf", xin, p["w3"])
     out_e = torch.einsum("egcf,efd->egcd", h, p["w2"])
+    out_e = constrain(out_e, None, gspec[0], None, None)
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
-    return out.reshape(B, S, d)
+    return constrain(out, *gspec, None).reshape(B, S, d)
 
 
 def moe_aux_loss(p, x, cfg):

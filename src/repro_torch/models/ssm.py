@@ -19,7 +19,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import gqa_attention, gqa_decode, gqa_params_shape, rms_norm
+from .layers import (
+    gqa_attention,
+    gqa_decode,
+    gqa_params_shape,
+    merge_heads,
+    rms_norm,
+    split_heads,
+)
 
 CONV_K = 4
 
@@ -76,13 +83,12 @@ def ssm_scan(p, x, cfg, state=None, conv_tail=None):
     """
     B, S, d = x.shape
     nh, dh, N = cfg.ssm_heads, cfg.d_head, cfg.ssm_state
-    di = nh * dh
     u, z, new_tail = _conv_branch(p, x, cfg, conv_tail)       # (B,S,di)
     dt = F.softplus(u @ p["w_dt"] + p["dt_bias"])             # (B,S,nh)
-    Bmat = (x @ p["w_B"]).reshape(B, S, nh, N)
-    Cmat = (x @ p["w_C"]).reshape(B, S, nh, N)
+    Bmat = split_heads(x @ p["w_B"], nh, N)
+    Cmat = split_heads(x @ p["w_C"], nh, N)
     A = -torch.exp(p["A_log"].float())                        # (nh,)
-    uh = u.reshape(B, S, nh, dh)
+    uh = split_heads(u, nh, dh)
     if state is None:
         state = torch.zeros((B, nh, N, dh), dtype=torch.float32,
                             device=x.device)
@@ -96,7 +102,7 @@ def ssm_scan(p, x, cfg, state=None, conv_tail=None):
         ys.append(torch.einsum("bhn,bhnd->bhd", C_t.float(), state))
     y = torch.stack(ys, dim=1).to(x.dtype)                    # (B,S,nh,dh)
     y = y + uh * p["D"][:, None]
-    y = y.reshape(B, S, di) * F.silu(z)
+    y = merge_heads(y) * F.silu(z)
     return y @ p["w_out"], (state, new_tail)
 
 
@@ -121,13 +127,12 @@ def ssm_scan_chunked(p, x, cfg, state=None, conv_tail=None):
     if S % L != 0:
         return ssm_scan(p, x, cfg, state=state, conv_tail=conv_tail)
     nh, dh, N = cfg.ssm_heads, cfg.d_head, cfg.ssm_state
-    di = nh * dh
     u, z, new_tail = _conv_branch(p, x, cfg, conv_tail)
     dt = F.softplus(u @ p["w_dt"] + p["dt_bias"]).float()
-    Bm = (x @ p["w_B"]).reshape(B, S, nh, N).float()
-    Cm = (x @ p["w_C"]).reshape(B, S, nh, N).float()
+    Bm = split_heads(x @ p["w_B"], nh, N).float()
+    Cm = split_heads(x @ p["w_C"], nh, N).float()
     A = -torch.exp(p["A_log"].float())
-    uh = u.reshape(B, S, nh, dh).float()
+    uh = split_heads(u, nh, dh).float()
     nc = S // L
     # chunked views: (B, nc, L, ...)
     dtc = dt.reshape(B, nc, L, nh)
@@ -168,7 +173,7 @@ def ssm_scan_chunked(p, x, cfg, state=None, conv_tail=None):
         ys.append(y0 + y1)
     y = torch.stack(ys, dim=1).reshape(B, S, nh, dh)
     y = y + uh * p["D"][:, None]
-    y = y.to(x.dtype).reshape(B, S, di) * F.silu(z)
+    y = merge_heads(y.to(x.dtype)) * F.silu(z)
     return y @ p["w_out"], (state, new_tail)
 
 

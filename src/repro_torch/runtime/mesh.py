@@ -26,9 +26,17 @@ ranks on one card, so several ranks that share one card use gloo
 
 Without a process group a process is one rank: a mesh of size 1 then
 has no groups (``group`` returns None) and reduces nothing.
+
+Activation placement (the port of ``runtime.compat``'s ``use_mesh``,
+``batch_axes`` and ``constrain``): ``use_mesh(mesh)`` installs a mesh
+for the code it encloses, and ``constrain(x, *spec)`` redistributes a
+``DTensor`` to the placements of a spec of axis names on that mesh.  On
+a plain tensor, or with no mesh installed, it returns ``x`` itself.
+Only the dry run installs a mesh (``launch.dryrun.run_cell``).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -246,3 +254,156 @@ def make_local_mesh(axis_names: Tuple[str, str] = ("data", "model"), *,
     _, size = world()
     return make_mesh(_near_square(size), axis_names, backend=backend,
                      device=device)
+
+
+# ------------------------------------------------ activation placement ---
+
+_INSTALLED: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Install ``mesh`` for ``constrain`` and ``batch_axes`` inside the
+    block (restores the previous one on exit)."""
+    _INSTALLED.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _INSTALLED.pop()
+
+
+def installed_mesh() -> Optional[Mesh]:
+    """The mesh ``use_mesh`` installed last, or None."""
+    return _INSTALLED[-1] if _INSTALLED else None
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The data-parallel axes of the installed mesh (none without one)."""
+    mesh = installed_mesh()
+    names = mesh.axis_names if mesh is not None else ()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def axis_size(axes) -> int:
+    """The size of ``axes`` (a name or a tuple of names) on the installed
+    mesh: 1 without one, and for a name the mesh does not have."""
+    mesh = installed_mesh()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(mesh.shape.get(a, 1) for a in axes) \
+        if mesh is not None else 1
+
+
+def clean_spec(spec, names) -> tuple:
+    """Drop spec axes absent from ``names`` (e.g. 'pod' on single-pod)."""
+    clean = []
+    for s in spec:
+        if s is None:
+            clean.append(None)
+        elif isinstance(s, tuple):
+            t = tuple(a for a in s if a in names)
+            clean.append(t if t else None)
+        else:
+            clean.append(s if s in names else None)
+    return tuple(clean)
+
+
+def dtensor_dims(mesh) -> list:
+    """The mesh axes behind each dimension of a mesh's ``DeviceMesh`` for
+    DTensors: every spec of the models shards over ("pod", "data")
+    together or over "model", so the multi-pod grid's pod and data axes
+    are one dimension (the same blocks on every rank, in the same order);
+    DTensor's planner for a three-dimensional mesh takes minutes a cell."""
+    return [("pod", "data") if "pod" in mesh.axis_names else ("data",),
+            ("model",)]
+
+
+def dtensor_mesh(mesh):
+    """The ``DeviceMesh`` of ``mesh``'s grid, one dimension for each
+    entry of ``dtensor_dims``, over ``mesh``'s own process groups."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dims = dtensor_dims(mesh)
+    return DeviceMesh.from_group(
+        [mesh.group(d) for d in dims], "cpu",
+        mesh=torch.as_tensor(mesh.devices).reshape(
+            [mesh.size(d) for d in dims]),
+        mesh_dim_names=tuple("_".join(d) for d in dims))
+
+
+def placements(mesh, spec) -> list:
+    """The DTensor placements on ``dtensor_mesh(mesh)`` of a spec whose
+    axes are ``mesh``'s (``clean_spec`` drops the others first).  A
+    dimension that the axes do not divide is sharded unevenly: rank 0
+    holds ceil(n / parts) entries, the block GSPMD pads each device to."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = dtensor_dims(mesh)
+    out = [Replicate()] * len(dims)
+    for dim, axes in enumerate(clean_spec(spec, mesh.axis_names)):
+        if axes is None:
+            continue
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        if axes not in dims:
+            raise ValueError(f"spec {spec}: axes {axes} are not one "
+                             f"dimension of the DTensor mesh {dims}")
+        out[dims.index(axes)] = Shard(dim)
+    return out
+
+
+def constrain(x, *spec):
+    """``x`` placed by ``spec`` (one entry a dimension: an axis name, a
+    tuple of names or None) on the installed mesh: a ``DTensor`` is
+    redistributed when its placements differ; a plain tensor, or any
+    tensor with no mesh installed, is returned as it is."""
+    mesh = installed_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    # a dimension smaller than its axes stays whole: GSPMD pads it to one
+    # entry a device, rank 0's block either way, and DTensor cannot drop
+    # or view a dimension sharded into empty blocks (a batch of 1)
+    spec = [None if a is not None and n < axis_size(a) else a
+            for n, a in zip(x.shape, clean_spec(spec, mesh.axis_names))]
+    want = tuple(placements(mesh, spec))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, want)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``want``, and its gradient too, as the
+    transpose of JAX's sharding constraint constrains the cotangent
+    (DTensor's own redistribute takes a gradient back to the input's
+    placement, and its backward ops then shard a dimension on two mesh
+    axes at once, which its views get wrong)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad is not None and tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(grad.device_mesh, ctx.want)
+        return grad, None
+
+
+def placed_like(x, ref):
+    """``x`` with ``ref``'s placements when both are DTensors (an
+    in-place op keeps its target's placement and refuses another's);
+    ``x`` itself otherwise."""
+    if not (is_dtensor(x) and is_dtensor(ref)) or \
+            x.placements == ref.placements:
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (the dry run's tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)

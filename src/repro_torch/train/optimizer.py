@@ -60,7 +60,9 @@ def _map(fn, tree):
 
 
 def _zeros_f32(p):
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a DTensor parameter's zeros keep its placement
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def _slices(*tensors):

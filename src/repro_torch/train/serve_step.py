@@ -7,6 +7,7 @@ import torch
 
 from ..models import lm as lm_mod
 from ..models.config import ModelConfig
+from ..runtime.mesh import batch_axes, constrain
 
 
 def make_prefill_step(cfg: ModelConfig, last_only: bool = True):
@@ -33,7 +34,11 @@ def make_serve_step(cfg: ModelConfig):
     @torch.no_grad()
     def serve_step(params, tokens, cache):
         logits, new_cache = lm_mod.decode_step(params, cfg, tokens, cache)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # a DTensor's vocab gathered first: DTensor's argmax over a
+        # dimension sharded on one mesh axis and replicated on another
+        # views its partial results at a wrong shape
+        next_tok = torch.argmax(constrain(logits, batch_axes(), None),
+                                dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
     return serve_step

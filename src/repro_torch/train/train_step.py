@@ -18,6 +18,7 @@ import torch
 
 from ..models import lm as lm_mod
 from ..models.config import ModelConfig
+from ..runtime.mesh import batch_axes, constrain, is_dtensor, placed_like
 from . import optimizer as opt_mod
 
 
@@ -37,7 +38,18 @@ def cross_entropy(logits, labels, z_loss: float = 0.0):
     """Mean next-token xent; logits (B,S,V) f32-accumulated; z-loss reg."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    if is_dtensor(logits):
+        # DTensor's gather backward scatters into zeros replicated at the
+        # global shape (every rank a whole microbatch's f32 logits): the
+        # label's logit is selected by a mask instead, whose backward
+        # keeps the logits' vocab-parallel placement
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(vocab == labels.long()[..., None], logits,
+                         0.0).sum(-1)
+        ll = constrain(ll, batch_axes(), None)
+    else:
+        ll = torch.take_along_dim(logits, labels.long()[..., None],
+                                  dim=-1)[..., 0]
     loss = torch.mean(lse - ll)
     if z_loss > 0.0:
         loss = loss + z_loss * torch.mean(lse * lse)
@@ -108,7 +120,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
                 mb = {k: v[i] for k, v in micro.items()}
                 l, g = value_and_grad(loss_fn, params, mb)
                 for path, gi in opt_mod._paths(g):
-                    opt_mod._get(g_acc, path).add_(gi)
+                    acc = opt_mod._get(g_acc, path)
+                    acc.add_(placed_like(gi, acc))
                 del g
                 l_acc = l if l_acc is None else l_acc + l
             for _, acc in opt_mod._paths(g_acc):

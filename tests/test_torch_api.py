@@ -78,15 +78,14 @@ MISSING = {
                         "keeps its plain version beside the kernel",
     ("kernels.sparse_mvm", "ell_matvec_ref"): "its port is "
                                               "ell_matvec_plain",
-    ("models.lm", "constrain_tokens"): "runtime.compat's sharding "
-                                       "constraint (JAX only)",
     ("runtime.sanitize", "install"): "JAX's transfer guard; the port's "
                                      "guard is torch's sync debug mode",
     ("runtime.sanitize", "supported"): "JAX's transfer guard (as install)",
 }
-# runtime.compat shims JAX versions only: the port's meshes are
-# runtime.mesh, its collectives explicit all-reduces, and nothing sets an
-# ambient mesh or constrains a sharding
+# runtime.compat shims JAX versions only: the port's meshes, and its
+# counterparts of use_mesh, batch_axes and constrain (which the dry run
+# installs for DTensors), are runtime.mesh's, and the package does not
+# export them
 RUNTIME_COMPAT = ("batch_axes", "compat", "constrain", "get_abstract_mesh",
                   "set_mesh", "shard_map", "use_mesh")
 MISSING.update({("runtime", n): "runtime.compat (JAX only)"

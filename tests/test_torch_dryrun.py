@@ -6,7 +6,11 @@ formulas and specs.
 
 The decode cell runs at 2 layers (``cfg_overrides={"n_layers": 2}``)
 to stay fast; the full-depth cells are marked slow, as the reference's
-are."""
+are.  One cell a fault class that DTensor could not run before the
+models constrained their activations (the microbatch split, head counts
+that do not divide the model axis, the MoE dispatch, the token scan)
+runs at 2 layers too, its argument bytes held to the reference's
+shards."""
 import dataclasses
 import json
 import math
@@ -15,6 +19,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import get_config as ref_get_config
@@ -42,9 +47,21 @@ def _run(args, timeout=600):
     return proc.stdout
 
 
-def _run_cell(out_dir, arch, shape, multi_pod, **kw):
-    """``run_cell`` in a process of its own; the artifact's contents."""
-    _run(["-c", "from repro_torch.launch import dryrun; "
+def _run_cell(out_dir, arch, shape, multi_pod, seq_len=None,
+              unrolled=False, **kw):
+    """``run_cell`` in a process of its own; the artifact's contents.
+    ``seq_len`` shortens the shape's sequence; ``unrolled`` runs the
+    token scans as their loops of trips, not counted from one."""
+    setup = ""
+    if seq_len is not None:
+        setup += ("import dataclasses; dryrun.SHAPES[{0!r}] = "
+                  "dataclasses.replace(dryrun.SHAPES[{0!r}], seq_len={1}); "
+                  ).format(shape, seq_len)
+    if unrolled:
+        setup += ("import contextlib; from repro_torch.models import rwkv6; "
+                  "rwkv6.counted_scans = "
+                  "lambda counter: contextlib.nullcontext(); ")
+    _run(["-c", "from repro_torch.launch import dryrun; " + setup +
           f"dryrun.run_cell({arch!r}, {shape!r}, {multi_pod!r}, "
           f"{str(out_dir)!r}, **{kw!r})"])
     mesh = "2x16x16" if multi_pod else "16x16"
@@ -174,3 +191,111 @@ def test_dryrun_lp_256k_cell_both_meshes(tmp_path):
     for multi_pod, mesh in ((False, "16x16"), (True, "2x16x16")):
         cell = _run_cell(tmp_path, "lp_256k", "dist_step", multi_pod)
         _check_cell(cell, mesh)
+
+
+# ------------------------------------------- the cells DTensor once refused
+
+def _ref_bytes(arch, shape_name, mesh, seq_len=None):
+    """One device's shard of every input of a cell, from the reference's
+    shapes and specs: parameters (fsdp), the AdamW state and the batch
+    of a train cell (``microbatch`` does not change what a rank holds),
+    the tokens of a prefill cell, tokens and cache of a decode cell."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.train.train_step import TrainConfig as RefTrainConfig
+    from repro.train.train_step import opt_state_shapes
+
+    cfg = dataclasses.replace(ref_get_config(arch), n_layers=2)
+    shape = REF_SHAPES[shape_name]
+    batch, seq = shape.global_batch, seq_len or shape.seq_len
+    sizes = MESH_SIZES[mesh]
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    pshapes = rlm.param_shapes(cfg)
+    pspecs = rlm.partition_specs(cfg, mode="fsdp")
+    total = _tree_bytes(pshapes, pspecs, sizes)
+    tok = jax.ShapeDtypeStruct((batch, seq if shape.kind != "decode"
+                                else 1), "int32")
+    if shape.kind == "train":
+        total += _tree_bytes(opt_state_shapes(pshapes, RefTrainConfig()),
+                             {"m": pspecs, "v": pspecs, "step": P()}, sizes)
+        total += 2 * _local_bytes(tok, P(dp, None), sizes)
+    elif shape.kind == "prefill":
+        total += _local_bytes(tok, P(dp, None), sizes)
+    else:
+        total += _tree_bytes(rlm.init_cache(cfg, batch, seq, as_shapes=True),
+                             rlm.cache_specs(cfg), sizes)
+        total += _local_bytes(tok, P(dp, None), sizes)
+    return total
+
+
+# (arch, shape, fault class): the microbatch split (C6), heads that do
+# not divide the 16-way model axis (C7: 8 kv heads; 40 heads), the MoE
+# dispatch's flatten of 20 capacity slots over 16 ranks (C8)
+FAULT_CELLS = [("starcoder2-3b", "train_4k", "C6"),
+               ("granite-3-8b", "decode_32k", "C7"),
+               ("qwen3-14b", "decode_32k", "C7"),
+               ("olmoe-1b-7b", "decode_32k", "C8")]
+
+
+@pytest.mark.parametrize("arch,shape,fault", FAULT_CELLS,
+                         ids=[f"{a}-{s}" for a, s, _ in FAULT_CELLS])
+def test_dryrun_cell_that_dtensor_refused_runs(tmp_path, arch, shape, fault):
+    cell = _run_cell(tmp_path, arch, shape, False,
+                     cfg_overrides={"n_layers": 2})
+    _check_cell(cell, "16x16")
+    assert cell["memory"]["argument_bytes"] == _ref_bytes(arch, shape,
+                                                          "16x16")
+    assert cell["collectives"]["total_bytes"] > 0
+    if shape == "decode_32k":
+        assert cell["memory"]["peak_per_device_bytes"] < 16 * 2**30
+
+
+SCAN_SEQ = 64     # prefill_32k's scan cut to 64 tokens
+
+
+@pytest.fixture(scope="module")
+def scan_cells(tmp_path_factory):
+    """rwkv6-1.6b prefill at 2 layers and SCAN_SEQ tokens: the token scan
+    counted from its body, and the same cell with the scan unrolled."""
+    out = tmp_path_factory.mktemp("scan")
+    kw = dict(seq_len=SCAN_SEQ, cfg_overrides={"n_layers": 2})
+    scaled = _run_cell(out / "scaled", "rwkv6-1.6b", "prefill_32k", False,
+                       **kw)
+    unrolled = _run_cell(out / "unrolled", "rwkv6-1.6b", "prefill_32k",
+                         False, unrolled=True, **kw)
+    return scaled, unrolled
+
+
+def test_dryrun_scaled_scan_cell(scan_cells):
+    cell = scan_cells[0]
+    _check_cell(cell, "16x16")
+    assert cell["memory"]["argument_bytes"] == _ref_bytes(
+        "rwkv6-1.6b", "prefill_32k", "16x16", seq_len=SCAN_SEQ)
+
+
+def test_dryrun_scaled_scan_counts_equal_the_unrolled_loop(scan_cells):
+    scaled, unrolled = scan_cells
+    for key in ("op_estimate", "collectives", "memory", "roofline"):
+        assert scaled[key] == unrolled[key], key
+
+
+def test_constrain_returns_a_plain_tensor_itself():
+    from repro_torch.models.lm import constrain_tokens
+    from repro_torch.runtime.mesh import constrain, make_mesh, use_mesh
+
+    x = torch.ones(4, 3, 2)
+    assert constrain(x, ("pod", "data"), None, "model") is x
+    assert constrain_tokens(x) is x
+    with use_mesh(make_mesh({"data": 1, "model": 1}, device="cpu")):
+        assert constrain(x, ("pod", "data"), None, "model") is x
+        assert constrain_tokens(x) is x
+
+
+@pytest.mark.slow
+def test_dryrun_reference_decode_cell_full_depth(tmp_path):
+    """The reference's own decode cell (``tests/test_dryrun.py``), whole."""
+    cell = _run_cell(tmp_path, "starcoder2-3b", "decode_32k", True)
+    _check_cell(cell, "2x16x16")
+    assert cell["collectives"]["total_bytes"] > 0
+    # fits a 16 GiB HBM budget
+    assert cell["memory"]["peak_per_device_bytes"] < 16 * 2**30
