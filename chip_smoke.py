@@ -94,12 +94,15 @@ Phases, in order; any failure raises and exits non-zero:
    whole in bf16 with remat, 8 x 1024 tokens a step for 10 steps: ms a
    step, tokens/s, MFU, peak memory, loss falling; on granite one
    ``microbatch=2`` step against the plain step from the same state;
-11. the dry run (``repro_torch.launch.dryrun``) in a process of its own,
-   on the host's CPU (a fake process group of 512 ranks, ``meta``
-   DTensors; it launches nothing on the card): the reference's decode
-   cell, ``starcoder2-3b`` ``decode_32k`` on the 2x16x16 mesh, at 2
-   layers, its peak a device under the reference test's 16 GiB and its
-   bottleneck printed.
+11. the dry run (``repro_torch.launch.dryrun``) on the host's CPU (a
+   fake process group of 512 ranks, ``meta`` DTensors; it launches
+   nothing on the card), three cells at 2 layers, each in a process of
+   its own, all at once: the reference's decode cell, ``starcoder2-3b``
+   ``decode_32k`` on the 2x16x16 mesh (its peak a device under the
+   reference test's 16 GiB), ``olmoe-1b-7b`` ``train_4k`` on 2x16x16
+   and ``qwen3-14b`` ``prefill_32k`` on 16x16; with the machine's torch
+   printed, each cell's peak, FLOPs and collective bytes a device are
+   held within 1 % of the counts another torch gave (``DRYRUN_COUNTS``).
 
 The last lines are one JSON object with every kernel's numbers, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -2537,41 +2540,81 @@ MAIN_PATH_OF = {"dual_update": "host full", "primal_update": "host full",
                 "crossbar_mvm": "host full"}
 
 
-# phase 11: the reference test's decode cell (tests/test_dryrun.py), cut
-# to 2 layers; its artifact goes under build/ (ignored by git)
-DRYRUN_CELL = ("starcoder2-3b", "decode_32k", True)
+# phase 11: the dry run's counts on this machine's torch against those
+# written below, three cells cut to 2 layers: the reference test's decode
+# cell (tests/test_dryrun.py), olmoe's two-pod train cell (its strided
+# microbatch split, MoE) and a prefill cell (attention's views); each
+# artifact goes under build/ (ignored by git)
+DRYRUN_COUNTS_TORCH = "2.13.0+cpu"     # the torch the counts came from
+DRYRUN_COUNTS = {
+    # (arch, shape, multi_pod): peak bytes a device, FLOPs a device,
+    # collective bytes a device
+    ("starcoder2-3b", "decode_32k", True): (60768296, 410517504.0,
+                                            53912064.0),
+    ("olmoe-1b-7b", "train_4k", True): (2397912084, 12768937771008.0,
+                                        20548943888.0),
+    ("qwen3-14b", "prefill_32k", False): (4750723072, 12008923037696.0,
+                                          10958464096.0),
+}
+DRYRUN_REL = 0.01
 DRYRUN_TIMEOUT = 300
 
 
 def phase_dryrun() -> None:
-    arch, shape, multi = DRYRUN_CELL
+    import torch
+
+    print(f"dryrun: torch {torch.__version__} (counts written on torch "
+          f"{DRYRUN_COUNTS_TORCH})", flush=True)
     out = os.path.join(HERE, "build", "dryrun_smoke")
-    code = ("from repro_torch.launch import dryrun; "
-            f"dryrun.run_cell({arch!r}, {shape!r}, {multi!r}, {out!r}, "
-            "cfg_overrides={'n_layers': 2})")
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=HERE,
-                          capture_output=True, text=True,
-                          timeout=DRYRUN_TIMEOUT)
+    try:
+        for cell in DRYRUN_COUNTS:
+            arch, shape, multi = cell
+            code = ("from repro_torch.launch import dryrun; "
+                    f"dryrun.run_cell({arch!r}, {shape!r}, {multi!r}, "
+                    f"{out!r}, cfg_overrides={{'n_layers': 2}})")
+            procs[cell] = subprocess.Popen(
+                [sys.executable, "-c", code], env=env, cwd=HERE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell, proc in procs.items():
+            _, err = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+            check(proc.returncode == 0, f"dry run {cell} exited "
+                  f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"dry run exited {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    tag = f"{arch}_{shape}_{'2x16x16' if multi else '16x16'}"
-    with open(os.path.join(out, f"{tag}.json")) as f:
-        cell = json.load(f)
-    check("error" not in cell, f"dry run {tag}: {cell.get('error')}")
-    peak = cell["memory"]["peak_per_device_bytes"]
-    check(0 < peak < 16 * 2**30, f"dry run {tag}: peak {peak} bytes a "
-          "device, over the reference test's 16 GiB")
-    rf = cell["roofline"]
-    print(f"dryrun: {tag} (2 layers) peak/dev={peak / 2**30:.3f}GiB "
-          f"({peak} bytes) compute={rf['compute_s']:.3e}s "
-          f"memory={rf['memory_s']:.3e}s "
-          f"collective={rf['collective_s']:.3e}s "
-          f"bottleneck={rf['bottleneck']} trace {cell['trace_s']}s, "
-          f"process {wall:.1f}s (host CPU counts, not device metrics)",
-          flush=True)
+    for (arch, shape, multi), want in DRYRUN_COUNTS.items():
+        tag = f"{arch}_{shape}_{'2x16x16' if multi else '16x16'}"
+        with open(os.path.join(out, f"{tag}.json")) as f:
+            cell = json.load(f)
+        check("error" not in cell, f"dry run {tag}: {cell.get('error')}")
+        got = (cell["memory"]["peak_per_device_bytes"],
+               cell["op_estimate"]["flops"],
+               cell["collectives"]["total_bytes"])
+        if shape == "decode_32k":
+            check(0 < got[0] < 16 * 2**30, f"dry run {tag}: peak {got[0]} "
+                  "bytes a device, over the reference test's 16 GiB")
+        for name, g, w in zip(("peak", "FLOPs", "collective bytes"), got,
+                              want):
+            check(abs(g - w) <= DRYRUN_REL * w,
+                  f"dry run {tag}: {name} {g} a device, not within "
+                  f"{DRYRUN_REL:.0%} of {w} (torch {DRYRUN_COUNTS_TORCH})")
+        rf = cell["roofline"]
+        print(f"dryrun: {tag} (2 layers) peak/dev={got[0] / 2**30:.3f}GiB "
+              f"({got[0]} bytes) flops/dev={got[1]:.6e} "
+              f"collective bytes/dev={got[2]:.6e} "
+              f"bottleneck={rf['bottleneck']} trace {cell['trace_s']}s",
+              flush=True)
+    print(f"dryrun: three cells in {wall:.1f}s, all within "
+          f"{DRYRUN_REL:.0%} of torch {DRYRUN_COUNTS_TORCH}'s counts "
+          "(host CPU counts, not device metrics)", flush=True)
 
 
 def main() -> int:

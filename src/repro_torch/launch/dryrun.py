@@ -26,17 +26,27 @@ For each (arch x shape x mesh) cell this driver:
 The reference parses XLA's partitioned HLO for the same counts
 (``launch/hlo.py``, not ported: there is no HLO here), scaling a loop
 body's counts by its trip count.  The port's Python loops are unrolled
-but for RWKV6's token scan (``models.rwkv6.scan``), whose body runs twice
-and is counted as its trips (``_Costs.repeated``).  The models place
-their activations as the reference's sharding constraints do
-(``runtime.mesh.constrain``, live under the mesh ``run_cell`` installs
-with ``use_mesh``).  The reference's XLA-only keys (``xla_cost``,
+but for the reference's two ``lax.scan`` loops, RWKV6's token scan and
+the chunked SSM's loop over chunks (``models.scan.scan``), whose bodies
+run twice and are counted as their trips (``_Costs.repeated``).  The
+models place their activations as the reference's sharding constraints
+do (``runtime.mesh.constrain``, live under the mesh ``run_cell``
+installs with ``use_mesh``).  The reference's XLA-only keys (``xla_cost``,
 ``compile_s``, ``lower_s``, ``hlo_estimate``) are not written;
 ``op_estimate`` holds the per-device FLOPs and bytes that
 ``hlo_estimate`` held, and ``trace_s`` the run's wall.  A cell whose
 step DTensor cannot run (an op without a sharding rule) reports FAIL
-with its error in the artifact's ``"error"`` key, as the reference's
-``run_cell`` does.
+with its error, and the torch it ran on, in the artifact's ``"error"``
+key, as the reference's ``run_cell`` does.
+
+The counts are DTensor's, corrected where it departs from a deployment
+(``_as_deployed``: a real all-to-all, propagation left uncounted); a
+torch without either hook gets no counts (FAIL).  The models pin the
+placements whose collectives DTensor chose torch by torch on the cells
+checked, and run rank-local work (attention, the scans, MoE routing,
+the vocab-parallel embedding and loss) on each rank's blocks; torch 2.11
+and 2.13 give the same peaks, FLOPs and collective bytes on the cells
+``chip_smoke.py``'s phase 11 holds (PERF.md, section 7).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -64,9 +74,9 @@ from ..configs import (
     input_specs,
 )
 from ..models import lm as lm_mod
-from ..models import rwkv6 as rwkv_mod
-from ..runtime.mesh import dtensor_mesh, make_production_mesh, placements, \
-    use_mesh
+from ..models import scan as scan_mod
+from ..runtime.mesh import dtensor_mesh, is_dtensor, make_production_mesh, \
+    placements, use_mesh
 from ..train.serve_step import make_prefill_step, make_serve_step
 from ..train.train_step import TrainConfig, make_train_step, opt_state_shapes
 
@@ -199,15 +209,20 @@ def _place(tree, spec_tree, mesh, dmesh, microbatches: int = 1):
     return distribute_tensor(tree, dmesh, out)
 
 
-def _local_leaves(tree):
+def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _local_leaves(v)
+            yield from _tensors(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _local_leaves(v)
+            yield from _tensors(v)
     elif torch.is_tensor(tree):
-        yield tree.to_local() if hasattr(tree, "to_local") else tree
+        yield tree
+
+
+def _local_leaves(tree):
+    for t in _tensors(tree):
+        yield t.to_local() if is_dtensor(t) else t
 
 
 def _nbytes(t) -> int:
@@ -244,13 +259,13 @@ _NO_IO = {"view", "_unsafe_view", "_reshape_alias", "t", "transpose",
           "_wrap_tensor_autograd"}
 
 
-def _costs_mode():
+def _costs_mode(device):
     """A ``CommDebugMode`` that also counts, for every local op this
-    rank runs (DTensor's sharding propagation, which runs on fake
-    tensors, excluded): its FLOPs by ``torch.utils.flop_counter``'s
-    formulas, the bytes its tensors read and write, and each
-    collective's bytes by kind."""
-    from torch._subclasses.fake_tensor import FakeTensor
+    rank runs on ``device`` (the cell's: DTensor's sharding propagation,
+    which runs on fake tensors or is marked ``_PROPAGATING``, and its
+    shard bookkeeping on host index tensors excluded): its FLOPs by
+    ``torch.utils.flop_counter``'s formulas, the bytes its tensors read
+    and write, and each collective's bytes by kind."""
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import flop_registry
 
@@ -277,8 +292,7 @@ def _costs_mode():
             if out is NotImplemented:
                 return out
             tensors = list(_local_leaves((args, kwargs or {}, out)))
-            if _PROPAGATING[0] or any(isinstance(t, FakeTensor)
-                                      for t in tensors):
+            if not _rank_op(tensors, device):
                 return out
             name = func._overloadpacket.__name__
             kind = _COLLECTIVE_KINDS.get(name)
@@ -305,33 +319,72 @@ def _costs_mode():
     return _Costs()
 
 
-# > 0 while DTensor derives an op's placements by running its
-# decomposition on global-shape ``meta`` tensors (index_copy_, the decode
-# cache's update, is one): those ops are propagation, not this rank's work
+# > 0 while DTensor derives an op's placements (its sharding
+# propagation, which runs an op's decomposition on global-shape ``meta``
+# tensors on some ops and on some torches): those ops are not this rank's
 _PROPAGATING = [0]
+
+
+def _rank_op(tensors, device, kwargs=None) -> bool:
+    """Whether an op on ``tensors`` (or a factory op told ``device=``) is
+    this rank's work: on the cell's ``device`` (DTensor's shard
+    bookkeeping runs on host index tensors, its propagation on fake
+    tensors) and outside propagation."""
+    from torch._guards import active_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return (not _PROPAGATING[0] and active_fake_mode() is None
+            and not any(isinstance(t, FakeTensor) for t in tensors)
+            and (any(t.device == device for t in tensors)
+                 or (kwargs or {}).get("device") == device))
+
+
+def _hook(owner, name: str, what: str):
+    """``owner.name``, the DTensor internal that a correction of
+    ``_as_deployed`` replaces; a torch without it raises, naming itself
+    and the hook, where the dry run would count uncorrected."""
+    if not hasattr(owner, name):
+        raise RuntimeError(
+            f"torch {torch.__version__}: the dry run cannot correct "
+            f"DTensor's {what}: {getattr(owner, '__name__', owner)!r} has "
+            f"no {name!r}, so its counts cannot be vouched for")
+    return getattr(owner, name)
 
 
 @contextlib.contextmanager
 def _as_deployed():
     """Two corrections of DTensor on the dry run's fake group, inside the
-    block.  (1) DTensor redistributes a dimension's shards to another
-    dimension with an all-to-all, except on a "cpu" DeviceMesh, where it
-    all-gathers the whole tensor and keeps its chunk (gloo has no
-    all-to-all); the dry run's mesh is "cpu" only because its tensors
-    are ``meta``, and the fake group has an all-to-all, so the block runs
-    one (``all_to_all_single`` of the chunks), counted and held in memory
-    as the one a deployment runs.  (2) Sharding propagation through a
-    decomposition runs on global-shape tensors outside any fake mode,
-    where neither counter can tell it from this rank's ops:
-    ``_PROPAGATING`` marks it."""
-    from torch.distributed import _functional_collectives as funcol
-    from torch.distributed.tensor import _collective_utils, placement_types
+    block; each is installed or the block raises ``RuntimeError`` (never
+    a count without it).  (1) DTensor redistributes a dimension's shards
+    to another dimension with an all-to-all, except on a "cpu"
+    DeviceMesh, where it all-gathers the whole tensor and keeps its chunk
+    (gloo has no all-to-all); the dry run's mesh is "cpu" only because
+    its tensors are ``meta``, and the fake group has an all-to-all, so
+    the block runs one (``all_to_all_single`` of the chunks), counted and
+    held in memory as the one a deployment runs: every module of DTensor
+    that holds ``shard_dim_alltoall`` gets it.  (2) Sharding propagation
+    is not this rank's work, and runs ops outside any fake mode (an op's
+    decomposition on global-shape tensors, shard sizes on index tensors)
+    where no counter can tell them from this rank's: ``_PROPAGATING``
+    marks the whole of the sharding propagator's two entries, its cached
+    ``propagate_op_sharding`` and ``propagate_op_sharding_non_cached``."""
+    import sys
 
-    try:    # a torch without propagation through decompositions needs (2) not
-        from torch.distributed.tensor._decompositions import \
-            DecompShardingStrategy as strategy
-    except ImportError:
-        strategy = None
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, _collective_utils
+
+    gather = _hook(_collective_utils, "shard_dim_alltoall",
+                   "all-gather in place of an all-to-all on a cpu mesh")
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor")
+            and getattr(m, "shard_dim_alltoall", None) is gather]
+    dispatcher = _hook(DTensor, "_op_dispatcher",
+                       "sharding propagation at global shapes")
+    prop = _hook(dispatcher, "sharding_propagator",
+                 "sharding propagation at global shapes")
+    entries = ("propagate_op_sharding", "propagate_op_sharding_non_cached")
+    for name in entries:
+        _hook(prop, name, "sharding propagation at global shapes")
 
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
         # each rank's chunk of shard_dim to that rank, what comes back
@@ -343,37 +396,42 @@ def _as_deployed():
             got = got.wait()
         return torch.cat(got.unbind(0), dim=gather_dim)
 
-    def marked(*a, **kw):
-        _PROPAGATING[0] += 1
-        try:
-            return propagate(*a, **kw)
-        finally:
-            _PROPAGATING[0] -= 1
+    def marked(propagate):
+        def run(*a, **kw):
+            _PROPAGATING[0] += 1
+            try:
+                return propagate(*a, **kw)
+            finally:
+                _PROPAGATING[0] -= 1
+        return run
 
-    mods = [m for m in (_collective_utils, placement_types)
-            if hasattr(m, "shard_dim_alltoall")]
-    saved = [m.shard_dim_alltoall for m in mods]
+    saved = {name: prop.__dict__.get(name) for name in entries}
     for m in mods:
         m.shard_dim_alltoall = alltoall
-    if strategy is not None:
-        propagate = strategy._propagate_through_decomp
-        strategy._propagate_through_decomp = marked
+    for name in entries:
+        setattr(prop, name, marked(getattr(prop, name)))
     try:
         yield
     finally:
-        for m, f in zip(mods, saved):
-            m.shard_dim_alltoall = f
-        if strategy is not None:
-            strategy._propagate_through_decomp = propagate
+        for m in mods:
+            m.shard_dim_alltoall = gather
+        for name, f in saved.items():
+            if f is None:
+                delattr(prop, name)
+            else:
+                setattr(prop, name, f)
 
 
-def _mem_tracker():
-    """``MemTracker`` that leaves out the ops ``_PROPAGATING`` marks."""
+def _mem_tracker(device):
+    """``MemTracker`` of this rank's ops on ``device`` (``_rank_op``)."""
     from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor import DTensor
 
     class _Tracker(MemTracker):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if _PROPAGATING[0]:
+            if not any(t is DTensor for t in types) and not _rank_op(
+                    list(_local_leaves((args, kwargs or {}))), device,
+                    kwargs):
                 return func(*args, **(kwargs or {}))
             return super().__torch_dispatch__(func, types, args, kwargs)
 
@@ -386,15 +444,21 @@ def _measure(fn, args, mesh, cfg=None, shape=None, lp=None, n_inner=None):
     from torch.distributed.tensor.experimental import implicit_replication
 
     arg_leaves = list(_local_leaves(args))
-    mem = _mem_tracker()
+    # the cell's device: "meta" for an LM cell's DTensors, the LP step's
+    # host blocks for an LP cell
+    device = arg_leaves[0].device
+    mem = _mem_tracker(device)
     mem.track_external(*arg_leaves)
-    costs = _costs_mode()
+    costs = _costs_mode(device)
     t0 = time.perf_counter()
     # tensors the step makes itself (RoPE tables, masks, constants) are
     # replicated, as GSPMD treats a constant; every input stays a DTensor
     # placed by its spec
-    with implicit_replication(), _as_deployed(), mem, costs, \
-            rwkv_mod.counted_scans(costs):
+    # DTensor's corrections, where its tensors are (an LM cell's)
+    deployed = _as_deployed() if any(map(is_dtensor, _tensors(args))) \
+        else contextlib.nullcontext()
+    with implicit_replication(), deployed, mem, costs, \
+            scan_mod.counted_scans(costs):
         result = fn(*args)
     trace_s = time.perf_counter() - t0
     out_leaves = list(_local_leaves(result))
@@ -569,7 +633,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         result["prefill_last_only"] = prefill_last_only
         status = "SKIP" if "skipped" in result else "OK"
     except Exception as e:  # noqa: BLE001
-        result = {"cell": tag, "error": f"{type(e).__name__}: {e}",
+        # a DTensor that refuses a cell names the feature it lacks; the
+        # torch it runs on is named after it
+        result = {"cell": tag, "error": f"{type(e).__name__}: {e} "
+                                        f"(torch {torch.__version__})",
                   "traceback": traceback.format_exc()[-2000:]}
         status = "FAIL"
     os.makedirs(out_dir, exist_ok=True)

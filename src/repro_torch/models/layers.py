@@ -23,7 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..runtime.mesh import axis_size, batch_axes, constrain, is_dtensor
+from ..runtime.mesh import axis_size, batch_axes, constrain, from_local, \
+    is_dtensor, own_block, per_rank
 
 NEG = -1e30
 
@@ -69,15 +70,19 @@ def split_heads(t, n_heads: int, d_head: int):
 
     A DTensor is pinned, before the view and after it (and so is its
     gradient), with its batch over the data axes and its heads over
-    "model" when they divide that axis; otherwise whole over "model",
-    since DTensor cannot unflatten a dimension whose shards cut heads."""
+    "model".  Heads that do not divide that axis are viewed whole over
+    "model", since DTensor cannot unflatten a dimension whose shards cut
+    heads, then sharded unevenly (rank 0 holds ceil(H / 16) of them, the
+    block GSPMD pads each device to) by a slice of each rank's own; the
+    gradient is whole again at the view."""
     if not is_dtensor(t):
         return t.reshape(*t.shape[:-1], n_heads, d_head)
     ba, mid = batch_axes(), [None] * (t.ndim - 2)
     heads = "model" if n_heads % axis_size("model") == 0 else None
     t = constrain(t, ba, *mid, heads)
-    return constrain(t.reshape(*t.shape[:-1], n_heads, d_head),
-                     ba, *mid, heads, None)
+    t = constrain(t.reshape(*t.shape[:-1], n_heads, d_head),
+                  ba, *mid, heads, None)
+    return constrain(t, ba, *mid, "model", None)
 
 
 def merge_heads(t):
@@ -90,6 +95,32 @@ def merge_heads(t):
     heads = "model" if t.shape[-2] % axis_size("model") == 0 else None
     t = constrain(t, ba, *mid, heads, None)
     return constrain(t.reshape(flat), ba, *mid, heads)
+
+
+def project_heads(x, w, n_heads: int, d_head: int):
+    """``split_heads(x @ w, n_heads, d_head)``.
+
+    A DTensor whose heads outnumber "model" but do not divide it is
+    projected as GSPMD projects into padded head blocks: the weight is
+    gathered whole (FSDP's gather, and its gradient reduce-scattered
+    back) and each rank multiplies by its own heads' columns, so the
+    product is never whole over "model"."""
+    n = axis_size("model")
+    if not is_dtensor(x) or n_heads % n == 0 or n_heads < n:
+        return split_heads(x @ w, n_heads, d_head)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x = constrain(x, batch_axes(), *([None] * (x.ndim - 1)))
+    w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+    h0, h1 = own_block(n_heads)
+    # each rank's share of the input's gradient is a partial sum over its
+    # heads, and of the weight's over its batch and heads
+    xl = x.to_local(grad_placements=[x.placements[0], Partial()])
+    wl = w.to_local(grad_placements=[Partial()] * w.device_mesh.ndim)
+    y = xl @ wl[:, h0 * d_head:h1 * d_head]
+    return from_local(y.reshape(*y.shape[:-1], h1 - h0, d_head),
+                      [x.placements[0], Shard(x.ndim - 1)], x,
+                      (*x.shape[:-1], n_heads, d_head))
 
 
 def _repeat_heads(t, rep: int):
@@ -125,8 +156,10 @@ def _heads_over_model(q, k, v):
     # the kv heads' own placement pinned on the repeat's result first, so
     # that its gradient reaches the repeat's view as the view can take it
     kv = "model" if k.shape[2] % axis_size("model") == 0 else None
-    k, v = (constrain(constrain(_repeat_heads(t, rep), ba, None, kv, None),
-                      ba, None, "model", None) for t in (k, v))
+    if rep > 1:
+        k, v = (constrain(_repeat_heads(t, rep), ba, None, kv, None)
+                for t in (k, v))
+    k, v = (constrain(t, ba, None, "model", None) for t in (k, v))
     return constrain(q, ba, None, "model", None), k, v
 
 
@@ -147,46 +180,34 @@ def chunked_causal_attention(q, k, v, chunk: int = 512,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     nkv = max(1, S // chunk)
     ck = S // nkv
-    q_pos = torch.arange(S, device=q.device)
     if is_dtensor(q):
+        # the reference's route (heads over "model"), where every rank's
+        # attention is its own batch rows and heads: run as on plain
+        # tensors, on each rank's blocks
         q, k, v = _heads_over_model(q, k, v)
-        qf = (q * scale).float()
+        return per_rank(
+            lambda q, k, v: chunked_causal_attention(q, k, v, chunk,
+                                                     window, scale),
+            q, k, v,
+            out=[((batch_axes(), None, "model", None), (B, S, H, Dv))])
+    q_pos = torch.arange(S, device=q.device)
+    # (B, S, Hkv, rep, D): query head h reads kv head h // rep
+    qf = (q * scale).float().reshape(B, S, Hkv, rep, D)
 
-        def scores_of(kb):
-            return torch.einsum("bshd,bchd->bhsc", qf, kb)
+    def scores_of(kb):
+        return torch.einsum("bsgrd,bcgd->bgrsc", qf, kb).reshape(
+            B, H, S, ck)
 
-        def pv_of(p, vb):
-            return torch.einsum("bhsc,bchd->bhsd", p, vb)
-
-        Hkv = H
-    else:
-        # (B, S, Hkv, rep, D): query head h reads kv head h // rep
-        qf = (q * scale).float().reshape(B, S, Hkv, rep, D)
-
-        def scores_of(kb):
-            return torch.einsum("bsgrd,bcgd->bgrsc", qf, kb).reshape(
-                B, H, S, ck)
-
-        def pv_of(p, vb):
-            return torch.einsum("bgrsc,bcgd->bgrsd",
-                                p.reshape(B, Hkv, rep, S, ck),
-                                vb).reshape(B, H, S, Dv)
+    def pv_of(p, vb):
+        return torch.einsum("bgrsc,bcgd->bgrsd",
+                            p.reshape(B, Hkv, rep, S, ck),
+                            vb).reshape(B, H, S, Dv)
 
     kc = k.reshape(B, nkv, ck, Hkv, D)
     vc = v.reshape(B, nkv, ck, Hkv, Dv)
-    if is_dtensor(q):
-        # the running statistics take q's placement: a tensor made from
-        # nothing would be replicated at the global batch and heads
-        q0 = qf[..., 0].permute(0, 2, 1)                      # (B, H, S)
-        m_run = torch.full_like(q0, NEG)
-        l_run = torch.zeros_like(q0)
-        acc = torch.zeros_like(q0[..., None].expand(B, H, S, Dv))
-    else:
-        m_run = torch.full((B, H, S), NEG, dtype=torch.float32,
-                           device=q.device)
-        l_run = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, S, Dv), dtype=torch.float32,
-                          device=q.device)
+    m_run = torch.full((B, H, S), NEG, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, Dv), dtype=torch.float32, device=q.device)
     for j in range(nkv):
         kb, vb = kc[:, j].float(), vc[:, j].float()
         kv_pos = j * ck + torch.arange(ck, device=q.device)
@@ -201,6 +222,8 @@ def chunked_causal_attention(q, k, v, chunk: int = 512,
         l_run = l_run * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + pv_of(p, vb)
         m_run = m_new
+        # a block's scores die with it, not with the next block's
+        del scores, p
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -215,6 +238,17 @@ def decode_attention(q, k_cache, v_cache, cache_len, window: int = 0):
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
     rep = H // Hkv
+    if is_dtensor(q) and is_dtensor(k_cache) and \
+            k_cache.placements[-1].is_shard(2):
+        # keys and values made a head at a time (MLA's, from
+        # ``project_heads``): each rank attends with its own heads
+        q = constrain(q, batch_axes(), None, "model", None)
+        if is_dtensor(cache_len):
+            cache_len = cache_len.to_local()
+        return per_rank(
+            lambda q, k, v: decode_attention(q, k, v, cache_len, window),
+            q, k_cache, v_cache,
+            out=[((batch_axes(), None, "model", None), (B, 1, H, Dv))])
     if is_dtensor(q):
         # the cache keeps its placement (cache_specs: the head-feature
         # axis over "model"), and q takes it: the grouped view then cuts
@@ -222,11 +256,16 @@ def decode_attention(q, k_cache, v_cache, cache_len, window: int = 0):
         # all-reduced, (B/dp) x H x C f32 a layer, where moving the
         # cache to whole heads would move all of it every step
         ba = batch_axes()
-        q = constrain(q, ba, None, None, "model")
+        q = constrain(constrain(q, ba, None, None, None),
+                      ba, None, None, "model")
         k_cache = constrain(k_cache, ba, None, None, "model")
         v_cache = constrain(v_cache, ba, None, None, "model")
     qg = (q / math.sqrt(D)).float().reshape(B, Hkv, rep, D)
     scores = torch.einsum("bgrd,bcgd->bgrc", qg, k_cache.float())
+    # a DTensor's partial sums over "model" all-reduced here, as the
+    # reference's are (DTensor otherwise picks the collectives torch by
+    # torch); a plain tensor is itself
+    scores = constrain(scores, batch_axes(), None, None, None)
     pos = torch.arange(C, device=q.device)
     valid = pos < cache_len
     if window > 0:
@@ -353,5 +392,14 @@ def mlp_params_shape(cfg):
 
 
 def gated_mlp(p, x, cfg):
-    h = act_fn(x @ p["w1"], cfg.act) * (x @ p["w3"])
+    w1 = p["w1"]
+    if is_dtensor(w1) and w1.placements[0].is_shard():
+        # weights still sharded over the data axes (a decode step's):
+        # the tokens move, by placements pinned here, where DTensor picks
+        # the collectives torch by torch
+        ba, mid = batch_axes(), [None] * (x.ndim - 2)
+        h = act_fn(constrain(x @ w1, ba, *mid, "model"), cfg.act) \
+            * constrain(x @ p["w3"], ba, *mid, "model")
+        return constrain(h, None, *mid, "model") @ p["w2"]
+    h = act_fn(x @ w1, cfg.act) * (x @ p["w3"])
     return h @ p["w2"]

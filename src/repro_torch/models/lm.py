@@ -35,6 +35,7 @@ import torch
 from .._device import resolve_device
 from ..runtime.mesh import batch_axes as _batch_axes
 from ..runtime.mesh import constrain as _constrain
+from ..runtime.mesh import from_local, is_dtensor, own_block
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
@@ -58,6 +59,32 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def constrain_tokens(x):
     """``x`` with its leading (batch) dimension over the data axes."""
     return _constrain(x, _batch_axes(), *([None] * (x.ndim - 1)))
+
+
+def _embed(params, tokens):
+    """``params["embed"][tokens]``.
+
+    A DTensor's table is looked up as GSPMD partitions the reference's
+    gather of a table sharded (vocab over "model", features over the
+    data axes): every token on every rank, each rank taking its own
+    vocabulary rows' feature block (zeros for the others' rows); the
+    result, features over the data axes and partial sums over "model",
+    is placed by ``constrain_tokens`` (an all-to-all and an all-reduce).
+    DTensor's own rule for the gather moves the whole table on some
+    torches, and its gradient has no rule on others."""
+    table = params["embed"]
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Shard
+
+    tokens = _constrain(tokens, *([None] * tokens.ndim))
+    lo, hi = own_block(table.shape[0])
+    rows = table.to_local(grad_placements=table.placements)
+    idx = tokens.to_local().long() - lo
+    hit = (idx >= 0) & (idx < hi - lo)
+    local = torch.where(hit[..., None], rows[idx.clamp(0, hi - lo - 1)], 0)
+    return from_local(local, [Shard(tokens.ndim), Partial()], table,
+                      (*tokens.shape, table.shape[1]))
 
 
 def _index(tree, i):
@@ -311,16 +338,44 @@ def _mlp_apply(p, x, cfg):
     return moe_mod.moe_block(p, x, cfg)
 
 
+def _gathered(layer_p):
+    """A layer's weights whole over the data axes, as FSDP gathers them
+    before the layer runs (a DTensor's; plain tensors are themselves).
+    Its gradient goes back as DTensor's redistribute takes it: the
+    partial sums over the batch reduce-scattered to each weight's shard.
+    Without it DTensor picks, op by op and torch by torch, whether to
+    move a weight or to contract over its data-sharded dimension into
+    partial sums of the whole batch.  A decode step's few tokens move
+    instead of its weights, as XLA moves them (its FLOPs are XLA's)."""
+    from torch.distributed.tensor import Replicate
+
+    def gather(w):
+        if not is_dtensor(w) or not w.placements[0].is_shard():
+            return w
+        return w.redistribute(w.device_mesh,
+                              [Replicate(), *w.placements[1:]])
+
+    return {k: _gathered(v) if isinstance(v, dict) else gather(v)
+            for k, v in layer_p.items()}
+
+
 def _block(layer_p, h, cfg):
+    layer_p = _gathered(layer_p)
     ba = _batch_axes()
     h = _constrain(h, ba, None, None)
-    h = h + _mixer_apply(layer_p["mixer"], rms_norm(h, layer_p["ln1"]), cfg)
-    # the port's one constraint more than the reference's: DTensor carries
-    # the output projection's partial sums over "model" through the
-    # residual add into the MLP (which then gathers its weights whole),
-    # where GSPMD reduces them into the residual's pinned placement
+    # the port's constraints more than the reference's: each sublayer's
+    # output, and the residual between them.  DTensor carries an output
+    # projection's partial sums over "model" through the residual add
+    # into the MLP (which then gathers its weights whole), or reduces
+    # them there, torch by torch, where GSPMD reduces them into the
+    # residual's pinned placement
+    h = h + _constrain(
+        _mixer_apply(layer_p["mixer"], rms_norm(h, layer_p["ln1"]), cfg),
+        ba, None, None)
     h = _constrain(h, ba, None, None)
-    h = h + _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg)
+    h = h + _constrain(
+        _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg),
+        ba, None, None)
     return _constrain(h, ba, None, None)
 
 
@@ -351,7 +406,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens=None, embeddings=None,
     if embeddings is not None:
         h = embeddings.to(_dtype(cfg))
     else:
-        h = params["embed"][tokens.long()]
+        h = _embed(params, tokens)
     h = constrain_tokens(h)
     block = functools.partial(_block, cfg=cfg)
     if remat and torch.is_grad_enabled():
@@ -364,7 +419,15 @@ def forward_hidden(params, cfg: ModelConfig, tokens=None, embeddings=None,
 def apply_head(params, h):
     """hidden (..., d) -> logits (..., V)."""
     head = params.get("lm_head")
-    logits = h @ params["embed"].T if head is None else h @ head
+    w = params["embed"].T if head is None else head
+    if is_dtensor(w) and h.numel() // h.shape[-1] > w.shape[0]:
+        # more tokens than features (a prefill's or a train step's): the
+        # head whole over the data axes, as FSDP gathers it, where DTensor
+        # would contract over its data-sharded features into partial sums
+        # of the whole batch's logits on every rank; a decode step's few
+        # tokens move instead of the head
+        w = _constrain(w, None, "model")
+    logits = h @ w
     spec = [_batch_axes()] + [None] * (logits.ndim - 2) + ["model"]
     return _constrain(logits, *spec)
 
@@ -452,7 +515,7 @@ def _mixer_decode(p, x, cfg, cache):
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """tokens (B, 1) + stacked cache -> (logits (B, V), cache); the
     cache's tensors are updated in place and the same cache returned."""
-    h = constrain_tokens(params["embed"][tokens.long()])
+    h = constrain_tokens(_embed(params, tokens))
     ba = _batch_axes()
     for i in range(_n_layers(params)):
         layer_p = _index(params["layers"], i)
@@ -460,9 +523,12 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
         mix_out, new_cache = _mixer_decode(layer_p["mixer"], hn, cfg,
                                            _index(cache, i))
         _store(cache, i, new_cache)
-        # the residual pinned after each sublayer, as in _block
-        h = _constrain(h + mix_out, ba, None, None)
-        h = h + _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg)
+        # each sublayer's output and the residual pinned, as in _block
+        h = _constrain(h + _constrain(mix_out, ba, None, None),
+                       ba, None, None)
+        h = h + _constrain(
+            _mlp_apply(layer_p["mlp"], rms_norm(h, layer_p["ln2"]), cfg),
+            ba, None, None)
         h = _constrain(h, ba, None, None)
     h = rms_norm(h, params["final_norm"])
     return apply_head(params, h)[:, 0, :], cache

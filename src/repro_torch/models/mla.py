@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime.mesh import batch_axes, constrain, is_dtensor
+from ..runtime.mesh import batch_axes, constrain
 from .layers import (
     _cache_slot,
     apply_rope,
     chunked_causal_attention,
     decode_attention,
     merge_heads,
+    project_heads,
     rms_norm,
     rope_angles,
     split_heads,
@@ -98,14 +99,10 @@ def mla_decode(p, x, cfg, cache):
     cos, sin = rope_angles(torch.arange(C, device=x.device), dr,
                            cfg.rope_theta)
     k_rope_c = apply_rope(k_rope_c, cos, sin)
-    w_ukv = p["w_ukv"]
-    if is_dtensor(w_ukv):
-        # the latents expand at every cached position each step, a
-        # product far larger than its weight: the weight is gathered
-        # whole and every "model" rank makes the product, where the
-        # heads' view (40 do not divide 16) would gather the product
-        w_ukv = constrain(w_ukv, None, None)
-    kv = split_heads(latent @ w_ukv, H, 2 * dh)
+    # the latents expand at every cached position each step, a product
+    # far larger than its weight: a DTensor's is made a rank's heads at a
+    # time (40 do not divide 16), where the heads' view would gather it
+    kv = project_heads(latent, p["w_ukv"], H, 2 * dh)
     k_full = torch.cat([kv[..., :dh], k_rope_c.expand(B, C, H, dr)], dim=-1)
     v_full = kv[..., dh:]
     o = decode_attention(q, k_full, v_full, pos + 1)

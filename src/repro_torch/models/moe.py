@@ -14,7 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..runtime.mesh import axis_size, batch_axes, constrain, is_dtensor
+from ..runtime.mesh import axis_size, batch_axes, constrain, is_dtensor, \
+    per_rank
 from .layers import act_fn
 
 GROUP = 512   # tokens per routing group
@@ -52,6 +53,38 @@ def _group_spec(g: int, xt):
     return (ba, None) if g % axis_size(ba) == 0 else (None, ba)
 
 
+def _route(logits, k: int, C: int):
+    """Routing groups' logits (g, tg, E) -> (dispatch, combine), each
+    (g, tg, E, C): the top-k experts of each token and its slot in each
+    expert's queue of C, the probabilities folded into combine."""
+    g, tg, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)              # (g, tg, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # expert one-hot per choice: (g, tg, k, E)
+    oh = F.one_hot(top_i, E).float()
+    # position of each (token, choice) within its expert queue
+    pos = torch.cumsum(oh.reshape(g, tg * k, E), dim=1).reshape(
+        g, tg, k, E) * oh - 1.0
+    keep = (pos < C) & (oh > 0)
+    pos = torch.where(keep, pos, 0.0)
+    # one-hot slots as jax.nn.one_hot makes them (a comparison with the
+    # slot numbers), the same 0/1 values as F.one_hot's without its int64
+    # copy of (g, tg, k, E, C)
+    pos_oh = (pos.long()[..., None]
+              == torch.arange(C, device=pos.device)).float()
+    # dispatch (g, tg, E, C) / combine with routing probs folded in
+    kept = oh * keep
+    dispatch = torch.einsum("gske,gskec->gsec", kept, pos_oh)
+    # the probabilities folded into the 0/1 choices before the one-hot
+    # slots, not after: every product is exact and a (token, expert)
+    # pair has one choice at most, so this is the three-operand einsum
+    # bit for bit without its (g, tg, k, E, C) intermediate
+    combine = torch.einsum("gske,gskec->gsec", kept * top_p[..., None],
+                           pos_oh)
+    return dispatch, combine
+
+
 def moe_block(p, x, cfg):
     """x (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
@@ -63,23 +96,17 @@ def moe_block(p, x, cfg):
     gspec = _group_spec(g, xt)
     xt = constrain(xt, *gspec, None)
     logits = (xt @ p["router"]).float()                      # (g, tg, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, k, dim=-1)              # (g, tg, k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
     C = _capacity(tg, k, E, cfg.capacity_factor)
-    # expert one-hot per choice: (g, tg, k, E)
-    oh = F.one_hot(top_i, E).float()
-    # position of each (token, choice) within its expert queue
-    pos = torch.cumsum(oh.reshape(g, tg * k, E), dim=1).reshape(
-        g, tg, k, E) * oh - 1.0
-    keep = (pos < C) & (oh > 0)
-    pos = torch.where(keep, pos, 0.0)
-    pos_oh = F.one_hot(pos.long(), C).float()
-    # dispatch (g, tg, E, C) / combine with routing probs folded in
-    kept = oh * keep
-    dispatch = torch.einsum("gske,gskec->gsec", kept, pos_oh)
-    combine = torch.einsum("gske,gskec,gsk->gsec", kept, pos_oh, top_p)
+    if is_dtensor(logits) and gspec[0] is not None:
+        # every routing group on its own rank: the routing, a function of
+        # its group alone, runs on each rank's groups (DTensor's rules
+        # move the choices' gradients whole on some torches)
+        shape = (g, tg, E, C)
+        dispatch, combine = per_rank(
+            lambda logits: _route(logits, k, C), logits,
+            out=[((gspec[0], None, None, None), shape)] * 2)
+    else:
+        dispatch, combine = _route(logits, k, C)
 
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
     xin = constrain(xin, None, gspec[0], None, None)

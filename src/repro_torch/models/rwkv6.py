@@ -14,12 +14,12 @@ O(1) state per token; the recurrence runs token by token (``scan``).
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
+from ..runtime.mesh import batch_axes, constrain, is_dtensor
 from .layers import merge_heads, rms_norm, split_heads
+from .scan import scan, scan_by_rank
 
 LORA_R = 32
 
@@ -52,87 +52,6 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu
 
 
-# ---------------------------------------------------------------- scan ---
-
-_COUNTERS: list = []
-
-
-@contextlib.contextmanager
-def counted_scans(counter):
-    """Inside the block ``scan`` runs its body twice and has ``counter``
-    count it as ``n`` trips: the dry run's counting mode, whose
-    ``repeated(n)`` scales every count it takes inside it by ``n``, as
-    the reference's ``launch/hlo.py`` scales a ``lax.scan`` body's counts
-    by its trip count."""
-    _COUNTERS.append(counter)
-    try:
-        yield counter
-    finally:
-        _COUNTERS.pop()
-
-
-class _Trips(torch.autograd.Function):
-    """Identity on its tensors whose backward multiplies the counter's
-    scale by n (``enter``) or divides it by n: put on a scan body's
-    outputs and on its inputs, it scales the body's backward as the
-    forward is scaled."""
-
-    @staticmethod
-    def forward(ctx, counter, n, enter, *ts):
-        ctx.counter, ctx.n, ctx.enter = counter, n, enter
-        # a missing gradient is made here, shaped and placed as its
-        # tensor: autograd's own zeros would be a plain tensor at the
-        # global shape in the place of a DTensor's
-        ctx.set_materialize_grads(False)
-        ctx.inputs = ts
-        return tuple(t.view_as(t) for t in ts)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        if ctx.enter:
-            ctx.counter.scale *= ctx.n
-        else:
-            ctx.counter.scale //= ctx.n
-        grads = [torch.zeros_like(t) if g is None else g
-                 for g, t in zip(grads, ctx.inputs)]
-        return (None, None, None, *grads)
-
-
-def scan(step, carry, xs, n: int):
-    """``carry, y_t = step(carry, t, *xs)`` for t < n: (the last carry,
-    the outputs stacked on dimension 1), as ``lax.scan`` over the token
-    axis.
-
-    On its own a Python loop over the n trips.  Inside ``counted_scans``
-    the body runs twice: the first trip counted once (it also places the
-    initial carry) and the second counted as the other n - 1, forward
-    and backward; the carry keeps its full size, and the second output
-    is copied n - 1 times into the stack, which is as large as the
-    loop's and moves as many bytes."""
-    if not _COUNTERS or n < 2:
-        ys = []
-        for t in range(n):
-            carry, y = step(carry, t, *xs)
-            ys.append(y)
-        return carry, torch.stack(ys, dim=1)
-    counter, trips = _COUNTERS[-1], n - 1
-    carry, y0 = step(carry, 0, *xs)
-    ins = [carry, *xs]
-    live = [i for i, t in enumerate(ins)
-            if torch.is_grad_enabled() and t.requires_grad]
-    if live:
-        for i, t in zip(live, _Trips.apply(counter, trips, False,
-                                           *(ins[i] for i in live))):
-            ins[i] = t
-    with counter.repeated(trips):
-        carry, y = step(ins[0], 1, *ins[1:])
-    if live:
-        carry, y = _Trips.apply(counter, trips, True, carry, y)
-    y0, y = y0.unsqueeze(1), y.unsqueeze(1)
-    return carry, torch.cat(
-        [y0, y.expand(y.shape[0], trips, *y.shape[2:])], dim=1)
-
-
 def rwkv6_mix(p, x, cfg, state=None, x_tail=None):
     """x (B,S,d) -> (y, (state (B,nh,dh,dh), x_tail (B,1,d)))."""
     B, S, d = x.shape
@@ -152,12 +71,17 @@ def rwkv6_mix(p, x, cfg, state=None, x_tail=None):
     # data-dependent decay, clamped for numerical safety
     dec = p["w_decay_base"] + torch.tanh(xw @ p["w_decay_A"]) \
         @ p["w_decay_B"]
+    # a DTensor's low-rank product reduced onto the features it decays,
+    # over "model" as the heads lie (DTensor reduces its partial sums
+    # onto the sequence, or whole, torch by torch)
+    dec = constrain(dec, batch_axes(), None, "model")
     w = torch.exp(-torch.exp(torch.clamp(dec.float(), -8.0, 2.0)))
     w = split_heads(w, nh, dh)
     u = p["u_bonus"].reshape(nh, dh)
-    if state is None:
-        state = torch.zeros((B, nh, dh, dh), dtype=torch.float32,
-                            device=x.device)
+
+    def zero_state(r, *_):
+        return torch.zeros((r.shape[0], r.shape[2], dh, dh),
+                           dtype=torch.float32, device=r.device)
 
     def step(state, t, r, k, v, w, u):
         r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
@@ -168,9 +92,25 @@ def rwkv6_mix(p, x, cfg, state=None, x_tail=None):
         y_t = torch.einsum("bhk,bhkv->bhv", r_t.to(m.dtype), m)
         return w_t[..., :, None] * state + kv, y_t
 
-    state, ys = scan(step, state, (r, k, v, w, u), S)
+    if is_dtensor(r):
+        # each rank's batch rows and heads (the state's too, made or
+        # moved there): the scan runs on its blocks
+        ba = batch_axes()
+        heads = (ba, None, "model", None)
+        state, ys = scan_by_rank(
+            step, state, (r, k, v, w, u), S,
+            carry_spec=(ba, "model", None, None),
+            xs_specs=(heads,) * 4 + (("model", None),), ys_spec=heads,
+            shapes=((B, nh, dh, dh), (B, S, nh, dh)), init=zero_state)
+    else:
+        if state is None:
+            state = zero_state(r)
+        state, ys = scan(step, state, (r, k, v, w, u), S)
     y = merge_heads(ys).to(x.dtype)
-    y = rms_norm(y, p["ln_x"]) * g
+    # a DTensor's features pinned over "model" for the output product, as
+    # they leave the heads (DTensor moves the norm's rows to a sequence
+    # shard on some torches); a plain tensor is itself
+    y = constrain(rms_norm(y, p["ln_x"]) * g, batch_axes(), None, "model")
     out = y @ p["w_o"]
     return out, (state, x[:, -1:, :])
 

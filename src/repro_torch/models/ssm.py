@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime.mesh import batch_axes, constrain, is_dtensor
 from .layers import (
     gqa_attention,
     gqa_decode,
@@ -27,6 +28,7 @@ from .layers import (
     rms_norm,
     split_heads,
 )
+from .scan import scan, scan_by_rank
 
 CONV_K = 4
 
@@ -52,7 +54,12 @@ def _depthwise_conv(x, w):
     """causal depthwise conv: x (B, S, di), w (K, di)."""
     B, S, di = x.shape
     K = w.shape[0]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    if is_dtensor(x):
+        # the same zeros ahead of the sequence, by a rule every torch's
+        # DTensor has (some index out of range padding a DTensor)
+        xp = torch.cat([x.new_zeros((B, K - 1, di)), x], dim=1)
+    else:
+        xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for i in range(K):      # K is tiny and static: unrolled taps
         out = out + xp[:, i: i + S, :] * w[i]
@@ -75,6 +82,35 @@ def _conv_branch(p, x, cfg, conv_tail):
     return F.silu(conv_out), z, new_tail
 
 
+def _scan_heads(step, state, xs, heads, n, ys_shape):
+    """``scan`` of the SSM's recurrence over ``xs``: ``xs[0]`` the input
+    u (B, ..., nh, dh), ``heads[i]`` the dimension of ``xs[i]``'s heads
+    (None for a constant); ``state`` (B, nh, N, dh), None for zeros.
+    DTensors run on each rank's batch rows and heads (``scan_by_rank``),
+    as GSPMD partitions the reference's ``lax.scan``."""
+    N = xs[2].shape[-1]
+
+    def zeros(u, *_):
+        return torch.zeros((u.shape[0], u.shape[-2], N, u.shape[-1]),
+                           dtype=torch.float32, device=u.device)
+
+    if not is_dtensor(xs[0]):
+        return scan(step, zeros(xs[0]) if state is None else state, xs, n)
+    ba = batch_axes()
+
+    def spec(ndim, h):
+        return tuple("model" if d == h else ba if d == 0 else None
+                     for d in range(ndim))
+
+    B, nh, dh = ys_shape[0], ys_shape[-2], ys_shape[-1]
+    return scan_by_rank(
+        step, state, xs, n, carry_spec=(ba, "model", None, None),
+        xs_specs=[() if h is None else spec(t.ndim, h)
+                  for t, h in zip(xs, heads)],
+        ys_spec=spec(len(ys_shape), len(ys_shape) - 2),
+        shapes=((B, nh, N, dh), ys_shape), init=zeros)
+
+
 def ssm_scan(p, x, cfg, state=None, conv_tail=None):
     """x (B, S, d) -> (y (B, S, d), (state, conv_tail)).
 
@@ -89,18 +125,19 @@ def ssm_scan(p, x, cfg, state=None, conv_tail=None):
     Cmat = split_heads(x @ p["w_C"], nh, N)
     A = -torch.exp(p["A_log"].float())                        # (nh,)
     uh = split_heads(u, nh, dh)
-    if state is None:
-        state = torch.zeros((B, nh, N, dh), dtype=torch.float32,
-                            device=x.device)
-    ys = []
-    for t in range(S):
+
+    def step(state, t, uh, dt, Bmat, Cmat, A):
         u_t, dt_t, B_t, C_t = uh[:, t], dt[:, t], Bmat[:, t], Cmat[:, t]
         decay = torch.exp(dt_t.float() * A)[..., None, None]
         drive = (dt_t[..., None, None] * B_t[..., :, None]
                  * u_t[..., None, :]).float()
         state = decay * state + drive
-        ys.append(torch.einsum("bhn,bhnd->bhd", C_t.float(), state))
-    y = torch.stack(ys, dim=1).to(x.dtype)                    # (B,S,nh,dh)
+        return state, torch.einsum("bhn,bhnd->bhd", C_t.float(), state)
+
+    # the tokens as the reference's lax.scan runs them
+    state, y = _scan_heads(step, state, (uh, dt, Bmat, Cmat, A),
+                           (2, 2, 2, 2, 0), S, (B, S, nh, dh))
+    y = y.to(x.dtype)                                         # (B,S,nh,dh)
     y = y + uh * p["D"][:, None]
     y = merge_heads(y) * F.silu(z)
     return y @ p["w_out"], (state, new_tail)
@@ -139,13 +176,10 @@ def ssm_scan_chunked(p, x, cfg, state=None, conv_tail=None):
     Bc = Bm.reshape(B, nc, L, nh, N)
     Cc = Cm.reshape(B, nc, L, nh, N)
     uc = uh.reshape(B, nc, L, nh, dh)
-    if state is None:
-        state = torch.zeros((B, nh, N, dh), dtype=torch.float32,
-                            device=x.device)
     mask = torch.tril(torch.ones((L, L), dtype=torch.float32,
                                  device=x.device))
-    ys = []
-    for c in range(nc):
+
+    def step(state, c, uc, dtc, Bc, Cc, A, mask):
         dt_k, B_k, C_k, u_k = dtc[:, c], Bc[:, c], Cc[:, c], uc[:, c]
         log_a = dt_k * A                        # (B,L,nh), <= 0
         cum = torch.cumsum(log_a, dim=1)        # (B,L,nh)
@@ -170,8 +204,12 @@ def ssm_scan_chunked(p, x, cfg, state=None, conv_tail=None):
         drive = torch.einsum(
             "blh,blhn,blhd->bhnd", dt_k * decay_end, B_k, u_k)
         state = state * torch.exp(cum[:, -1, :])[..., None, None] + drive
-        ys.append(y0 + y1)
-    y = torch.stack(ys, dim=1).reshape(B, S, nh, dh)
+        return state, y0 + y1
+
+    # the chunks as the reference's lax.scan runs them
+    state, y = _scan_heads(step, state, (uc, dtc, Bc, Cc, A, mask),
+                           (3, 3, 3, 3, 0, None), nc, (B, nc, L, nh, dh))
+    y = y.reshape(B, S, nh, dh)
     y = y + uh * p["D"][:, None]
     y = merge_heads(y.to(x.dtype)) * F.silu(z)
     return y @ p["w_out"], (state, new_tail)
@@ -193,9 +231,18 @@ def hybrid_params_shape(cfg):
     return shapes
 
 
+def _reduced(y):
+    """A branch's output projection with its partial sums over "model"
+    reduced in its own dtype (a DTensor's), as GSPMD reduces it into the
+    norm's input: DTensor otherwise carries them into ``rms_norm``'s f32
+    square, and all-reduces that at twice the bytes."""
+    return constrain(y, batch_axes(), None, None)
+
+
 def hybrid_block(p, x, cfg, positions=None):
     attn_out, _kv = gqa_attention(p["attn"], x, cfg, positions)
     ssm_out, _st = ssm_apply(p["ssm"], x, cfg)
+    attn_out, ssm_out = _reduced(attn_out), _reduced(ssm_out)
     out = 0.5 * (rms_norm(attn_out, p["attn_scale"])
                  + rms_norm(ssm_out, p["ssm_scale"]))
     return out, None
@@ -206,6 +253,7 @@ def hybrid_decode(p, x, cfg, cache):
     attn_out, attn_cache = gqa_decode(p["attn"], x, cfg, cache["attn"])
     ssm_out, (state, tail) = ssm_scan(
         p["ssm"], x, cfg, state=cache["state"], conv_tail=cache["conv_tail"])
+    attn_out, ssm_out = _reduced(attn_out), _reduced(ssm_out)
     out = 0.5 * (rms_norm(attn_out, p["attn_scale"])
                  + rms_norm(ssm_out, p["ssm_scale"]))
     return out, {"attn": attn_cache, "state": state, "conv_tail": tail}

@@ -407,3 +407,56 @@ def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def own_block(n: int, axes="model"):
+    """This rank's entries [lo, hi) of a dimension of ``n`` sharded over
+    ``axes`` of the installed mesh, in ``torch.chunk``'s blocks as
+    DTensor cuts them (ceil(n / parts) a rank; the last ranks' blocks
+    short or empty when the parts do not divide ``n``)."""
+    mesh = installed_mesh()
+    per = -(-n // axis_size(axes))
+    r = mesh.index(axes)
+    return min(r * per, n), min((r + 1) * per, n)
+
+
+def from_local(local, placements, like, shape):
+    """A DTensor of global ``shape`` from this rank's block ``local``,
+    placed by ``placements`` on ``like``'s mesh: a block cut unevenly
+    (heads that do not divide "model") needs its global shape given."""
+    from torch.distributed.tensor import DTensor
+
+    # the global strides in the local block's own dimension order (a
+    # permuted result stays a view, as on plain tensors)
+    order = sorted(range(local.ndim), key=lambda d: -local.stride(d))
+    if not local.permute(order).is_contiguous():
+        local, order = local.contiguous(), list(range(local.ndim))
+    stride, n = [0] * local.ndim, 1
+    for d in reversed(order):
+        stride[d] = n
+        n *= shape[d]
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def per_rank(fn, *ts, out):
+    """``fn`` run on each rank's blocks of the DTensors ``ts`` as plain
+    tensors (JAX's ``shard_map``): for a computation local to every rank
+    (attention over a rank's own batch rows and heads, a scan over them),
+    whose views and products DTensor's rules would otherwise have to
+    follow, and some torches' refuse (two sharded dimensions flattened
+    into one).  A plain tensor among ``ts`` is a constant every rank
+    holds whole.  ``out`` gives, for each result, its spec on the
+    installed mesh and its global shape; one result comes back as a
+    DTensor, several as a tuple.  Each gradient is this rank's block of
+    it."""
+    mesh = installed_mesh()
+    like = next(t for t in ts if is_dtensor(t))
+    # a plain tensor is a constant every rank holds whole
+    res = fn(*(t.to_local(grad_placements=t.placements) if is_dtensor(t)
+               else t for t in ts))
+    many = isinstance(res, tuple)
+    placed = tuple(from_local(r, placements(mesh, spec), like, shape)
+                   for r, (spec, shape) in zip(res if many else (res,), out))
+    return placed if many else placed[0]

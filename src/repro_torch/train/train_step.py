@@ -18,7 +18,8 @@ import torch
 
 from ..models import lm as lm_mod
 from ..models.config import ModelConfig
-from ..runtime.mesh import batch_axes, constrain, is_dtensor, placed_like
+from ..runtime.mesh import batch_axes, constrain, from_local, is_dtensor, \
+    own_block, placed_like
 from . import optimizer as opt_mod
 
 
@@ -37,17 +38,34 @@ class TrainConfig:
 def cross_entropy(logits, labels, z_loss: float = 0.0):
     """Mean next-token xent; logits (B,S,V) f32-accumulated; z-loss reg."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
     if is_dtensor(logits):
-        # DTensor's gather backward scatters into zeros replicated at the
-        # global shape (every rank a whole microbatch's f32 logits): the
-        # label's logit is selected by a mask instead, whose backward
-        # keeps the logits' vocab-parallel placement
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        ll = torch.where(vocab == labels.long()[..., None], logits,
-                         0.0).sum(-1)
-        ll = constrain(ll, batch_axes(), None)
+        from torch.distributed.tensor import Partial
+
+        # vocab-parallel, as GSPMD partitions the reference's: DTensor
+        # has no rule for logsumexp over a sharded dimension and gathers
+        # whole rows (every rank its microbatch's f32 logits at the full
+        # vocabulary), so it runs as jax.nn.logsumexp's own steps, each
+        # reduction over the vocab an all-reduce of (B/dp) x S
+        ba = batch_axes()
+        m = constrain(logits.detach().amax(-1), ba, None)
+        lse = constrain(torch.exp(logits - m[..., None]).sum(-1), ba, None)
+        lse = torch.log(lse) + m
+        # the label's logit taken on the rank whose vocabulary block holds
+        # it (zero on the others) and summed over "model": DTensor's own
+        # rules for the gather, or for a mask over the vocabulary, make
+        # whole rows on some torches, and their backward too
+        labels = constrain(labels, ba, None)
+        lo, hi = own_block(logits.shape[-1])
+        idx = labels.to_local().long() - lo
+        hit = (idx >= 0) & (idx < hi - lo)
+        local = torch.take_along_dim(
+            logits.to_local(grad_placements=logits.placements),
+            idx.clamp(0, hi - lo - 1)[..., None], dim=-1)[..., 0]
+        ll = constrain(from_local(torch.where(hit, local, 0.0),
+                                  [labels.placements[0], Partial()],
+                                  labels, labels.shape), ba, None)
     else:
+        lse = torch.logsumexp(logits, dim=-1)
         ll = torch.take_along_dim(logits, labels.long()[..., None],
                                   dim=-1)[..., 0]
     loss = torch.mean(lse - ll)
@@ -94,6 +112,23 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), _unflatten(paths, grads)
 
 
+def _split_strided(x, nm: int):
+    """A DTensor batch placed as the dry run places a microbatched one
+    (``_StridedShard(0, split_factor=nm)``: each rank holds its rows of
+    every microbatch, in order) split as ``x.reshape(nm, b // nm, ...)``:
+    each rank's block is that view of its own rows, with the microbatch's
+    rows sharded as the batch's.  A local view, as on torches whose
+    DTensor refuses the strided split itself."""
+    from torch.distributed.tensor import Shard
+
+    local = x.to_local()
+    return from_local(
+        local.reshape(nm, local.shape[0] // nm, *local.shape[1:]),
+        [Shard(1) if getattr(p, "dim", None) == 0 else p
+         for p in x.placements],
+        x, (nm, x.shape[0] // nm, *x.shape[1:]))
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
     loss_fn = make_loss_fn(cfg, tcfg)
     if tcfg.optimizer == "adamw":
@@ -111,6 +146,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
 
             def split(x):
                 b = x.shape[0]
+                if is_dtensor(x):
+                    return _split_strided(x, nm)
                 return x.reshape(nm, b // nm, *x.shape[1:])
 
             micro = {k: split(v) for k, v in batch.items()}

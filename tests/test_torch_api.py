@@ -92,7 +92,9 @@ MISSING.update({("runtime", n): "runtime.compat (JAX only)"
                 for n in RUNTIME_COMPAT})
 
 # the port's own modules, with no counterpart in the reference
-PORT_OWN = ("_device", "interop", "kernels._build")
+# (models.scan: the reference's scans are lax.scan, the port's a loop the
+# dry run counts from its trips)
+PORT_OWN = ("_device", "interop", "kernels._build", "models.scan")
 # reference modules read from their source, never imported here:
 # importing repro.launch.dryrun asks XLA for 512 CPU devices
 # (runtime.compat.request_cpu_devices), which a test process must not do

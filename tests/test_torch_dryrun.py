@@ -58,8 +58,8 @@ def _run_cell(out_dir, arch, shape, multi_pod, seq_len=None,
                   "dataclasses.replace(dryrun.SHAPES[{0!r}], seq_len={1}); "
                   ).format(shape, seq_len)
     if unrolled:
-        setup += ("import contextlib; from repro_torch.models import rwkv6; "
-                  "rwkv6.counted_scans = "
+        setup += ("import contextlib; from repro_torch.models import scan; "
+                  "scan.counted_scans = "
                   "lambda counter: contextlib.nullcontext(); ")
     _run(["-c", "from repro_torch.launch import dryrun; " + setup +
           f"dryrun.run_cell({arch!r}, {shape!r}, {multi_pod!r}, "
@@ -277,6 +277,65 @@ def test_dryrun_scaled_scan_counts_equal_the_unrolled_loop(scan_cells):
     scaled, unrolled = scan_cells
     for key in ("op_estimate", "collectives", "memory", "roofline"):
         assert scaled[key] == unrolled[key], key
+
+
+HYMBA_SEQ = 512  # prefill_32k's chunked SSM scan cut to 4 chunks of 128
+
+
+@pytest.fixture(scope="module")
+def hymba_scan_cells(tmp_path_factory):
+    """hymba-1.5b prefill at 2 layers and HYMBA_SEQ tokens: the chunked
+    SSM's loop over chunks counted from its body, and the same cell with
+    the loop unrolled."""
+    out = tmp_path_factory.mktemp("hymba_scan")
+    kw = dict(seq_len=HYMBA_SEQ, cfg_overrides={"n_layers": 2})
+    scaled = _run_cell(out / "scaled", "hymba-1.5b", "prefill_32k", False,
+                       **kw)
+    unrolled = _run_cell(out / "unrolled", "hymba-1.5b", "prefill_32k",
+                         False, unrolled=True, **kw)
+    return scaled, unrolled
+
+
+def test_dryrun_scaled_chunk_scan_counts_equal_the_unrolled_loop(
+        hymba_scan_cells):
+    scaled, unrolled = hymba_scan_cells
+    _check_cell(scaled, "16x16")
+    assert scaled["memory"]["argument_bytes"] == _ref_bytes(
+        "hymba-1.5b", "prefill_32k", "16x16", seq_len=HYMBA_SEQ)
+    for key in ("op_estimate", "collectives", "memory", "roofline"):
+        assert scaled[key] == unrolled[key], key
+
+
+# each correction of launch.dryrun._as_deployed, and how a torch without
+# its hook is made (DTensor itself runs on: the module that calls the
+# all-to-all keeps its own name for it; the propagator's cache keeps the
+# bound method it wraps)
+MISSING_HOOKS = {
+    "shard_dim_alltoall": (
+        "from torch.distributed.tensor import _collective_utils; "
+        "del _collective_utils.shard_dim_alltoall; "),
+    "propagate_op_sharding_non_cached": (
+        "from torch.distributed.tensor._sharding_prop import "
+        "ShardingPropagator; "
+        "del ShardingPropagator.propagate_op_sharding_non_cached; "),
+}
+
+
+@pytest.mark.parametrize("hook", sorted(MISSING_HOOKS))
+def test_dryrun_without_a_correction_hook_reports_fail(tmp_path, hook):
+    """A torch without a hook that ``_as_deployed`` replaces gets no
+    counts: the cell reports FAIL, naming the torch and the hook."""
+    stdout = _run(["-c", MISSING_HOOKS[hook] +
+                   "from repro_torch.launch import dryrun; "
+                   f"dryrun.run_cell({DECODE_ARCH!r}, 'decode_32k', False, "
+                   f"{str(tmp_path)!r}, cfg_overrides={{'n_layers': 2}})"])
+    assert "[FAIL]" in stdout and hook in stdout, stdout
+    with open(os.path.join(tmp_path, f"{DECODE_ARCH}_decode_32k_16x16.json"))\
+            as f:
+        cell = json.load(f)
+    assert cell["error"].startswith("RuntimeError")
+    assert hook in cell["error"] and torch.__version__ in cell["error"]
+    assert not {"memory", "op_estimate", "collectives"} & set(cell)
 
 
 def test_constrain_returns_a_plain_tensor_itself():
