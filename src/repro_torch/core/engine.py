@@ -55,7 +55,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
-from .. import kernels
+from .. import kernels, spans
 from ..kernels import crossbar_mvm, pdhg_megakernel, pdhg_update, sparse_mvm
 from .residuals import kkt_residuals
 from .symblock import MODE_AX, MODE_ATY, matmul_accel
@@ -619,6 +619,7 @@ class SteppedWindow:
         self.warm = False
         self.graph = None
         self.launches = {}
+        self.mode = "eager"         # how the last window ran
 
     def body(self) -> None:
         """The window's launches, from the buffers to the buffers."""
@@ -681,7 +682,9 @@ class SteppedWindow:
             self._on_capture_stream(self.body)
             self.warm = True
         else:
+            self.mode = "replay"
             if self.graph is None:
+                self.mode = "capture"
                 self._on_capture_stream(self._capture)
             self.graph.replay()
             kernels.add_launch_counts(self.launches)
@@ -749,6 +752,12 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     ``merit`` per lane on the device (the merit of the iterate actually
     carried) and ``windows`` the windows run.  ``drain`` runs it to its
     end.
+
+    Each window is three ``spans``: ``loop.window`` (its launches, with
+    the ``mode`` it ran in: eager, capture, replay or fused),
+    ``loop.check`` (the check, the restart and the step rule, up to the
+    yield) and ``loop.read`` (the host read); none stays open across the
+    yield.
     """
     if step_rule not in STEP_RULES:
         raise ValueError(f"unknown step_rule {step_rule!r}; expected one "
@@ -800,71 +809,82 @@ def pdhg_loop(op: Operator, upd: Updates, b, c, lb, ub, T, Sigma,
     while True:
         merit, xs, ys, cnt, m_restart = rest
         s = state
-        if op.fuse is not None:
-            # megakernel window: one fused launch over the active lanes
-            s, dxs, dys = op.fuse(s, check_every, active)
-            xs, ys = xs + dxs, ys + dys
-        else:
-            # the window's outputs are views of its buffers; everything
-            # below that outlives the window (the selects) is a new tensor
-            s, xs, ys = window.run(s, xs, ys)
-        cnt = cnt + check_every
-        Kx = op.fwd(s.x)
-        KTy = op.adj(s.y)
-        merit = residual_fn(s.x, s.x_prev, s.y, Kx, KTy)
-        Kx_c, KTy_c = Kx, KTy
-        new_anchors = anchors
-        if restart:
-            x_avg = xs / _lanes(torch.clamp(cnt, min=1.0), xs)
-            y_avg = ys / _lanes(torch.clamp(cnt, min=1.0), ys)
-            Kxa = op.fwd(x_avg)
-            KTya = op.adj(y_avg)
-            merit_avg = residual_fn(x_avg, x_avg, y_avg, Kxa, KTya)
-            do_restart = merit_avg < restart_beta * m_restart
-            # adopt the average on a restart that improves the merit, or
-            # whenever it already satisfies tol
-            use_avg = (do_restart & (merit_avg < merit)) | (merit_avg <= tol)
-            x, x_prev, x_bar, y = select_lanes(
-                use_avg, (x_avg, x_avg, x_avg, y_avg),
-                (s.x, s.x_prev, s.x_bar, s.y))
-            s = s._replace(x=x, x_prev=x_prev, x_bar=x_bar, y=y)
-            m_restart = torch.where(do_restart,
-                                    torch.minimum(merit_avg, merit),
-                                    m_restart)
-            xs, ys, cnt = select_lanes(do_restart, (torch.zeros_like(xs),
-                                               torch.zeros_like(ys),
-                                               torch.zeros_like(cnt)),
-                                  (xs, ys, cnt))
-            # the carried merit is the merit of the iterate CARRIED
-            merit = torch.where(use_avg, merit_avg, merit)
+        with spans.span("loop.window", device=dev) as span:
+            if op.fuse is not None:
+                # megakernel window: one fused launch over the active lanes
+                s, dxs, dys = op.fuse(s, check_every, active)
+                xs, ys = xs + dxs, ys + dys
+                mode = "fused"
+            else:
+                # the window's outputs are views of its buffers; everything
+                # below that outlives the window (the selects) is a new
+                # tensor
+                s, xs, ys = window.run(s, xs, ys)
+                mode = window.mode
+            span.set("mode", mode)
+        spans.count(f"windows.{mode}")
+        with spans.span("loop.check", device=dev):
+            cnt = cnt + check_every
+            Kx = op.fwd(s.x)
+            KTy = op.adj(s.y)
+            merit = residual_fn(s.x, s.x_prev, s.y, Kx, KTy)
+            Kx_c, KTy_c = Kx, KTy
+            new_anchors = anchors
+            if restart:
+                x_avg = xs / _lanes(torch.clamp(cnt, min=1.0), xs)
+                y_avg = ys / _lanes(torch.clamp(cnt, min=1.0), ys)
+                Kxa = op.fwd(x_avg)
+                KTya = op.adj(y_avg)
+                merit_avg = residual_fn(x_avg, x_avg, y_avg, Kxa, KTya)
+                do_restart = merit_avg < restart_beta * m_restart
+                # adopt the average on a restart that improves the merit, or
+                # whenever it already satisfies tol
+                use_avg = ((do_restart & (merit_avg < merit))
+                           | (merit_avg <= tol))
+                x, x_prev, x_bar, y = select_lanes(
+                    use_avg, (x_avg, x_avg, x_avg, y_avg),
+                    (s.x, s.x_prev, s.x_bar, s.y))
+                s = s._replace(x=x, x_prev=x_prev, x_bar=x_bar, y=y)
+                m_restart = torch.where(do_restart,
+                                        torch.minimum(merit_avg, merit),
+                                        m_restart)
+                xs, ys, cnt = select_lanes(
+                    do_restart, (torch.zeros_like(xs), torch.zeros_like(ys),
+                                 torch.zeros_like(cnt)),
+                    (xs, ys, cnt))
+                # the carried merit is the merit of the iterate CARRIED
+                merit = torch.where(use_avg, merit_avg, merit)
+                if adaptive:
+                    # operator images of the carried iterate, by linearity
+                    Kx_c, KTy_c = select_lanes(use_avg, (Kxa, KTya), (Kx, KTy))
+                    rx, ry = anchors[5:]
+                    tau_n, sigma_n = adaptive_omega_update(
+                        s.tau, s.sigma, s.x - rx, s.y - ry, T, Sigma, w_lo,
+                        w_hi, do_restart, xsum, ysum)
+                    s = s._replace(tau=tau_n, sigma=sigma_n)
+                    new_anchors = anchors[:5] + select_lanes(
+                        do_restart, (s.x, s.y), (rx, ry))
             if adaptive:
-                # operator images of the carried iterate, by linearity
-                Kx_c, KTy_c = select_lanes(use_avg, (Kxa, KTya), (Kx, KTy))
-                rx, ry = anchors[5:]
-                tau_n, sigma_n = adaptive_omega_update(
-                    s.tau, s.sigma, s.x - rx, s.y - ry, T, Sigma, w_lo,
-                    w_hi, do_restart, xsum, ysum)
+                ax, ay, aKx, aKTy, aok = new_anchors[:5]
+                tau_n, sigma_n = adaptive_shrink(
+                    s.tau, s.sigma, eta, s.x - ax, s.y - ay, Kx_c - aKx,
+                    KTy_c - aKTy, T, Sigma, aok, xsum, ysum)
                 s = s._replace(tau=tau_n, sigma=sigma_n)
-                new_anchors = anchors[:5] + select_lanes(
-                    do_restart, (s.x, s.y), (rx, ry))
-        if adaptive:
-            ax, ay, aKx, aKTy, aok = new_anchors[:5]
-            tau_n, sigma_n = adaptive_shrink(
-                s.tau, s.sigma, eta, s.x - ax, s.y - ay, Kx_c - aKx,
-                KTy_c - aKTy, T, Sigma, aok, xsum, ysum)
-            s = s._replace(tau=tau_n, sigma=sigma_n)
-            new_anchors = ((s.x, s.y, Kx_c, KTy_c, torch.ones_like(aok))
-                           + new_anchors[5:])
-        # lanes that had stopped keep their state (the vmapped select)
-        state = PDHGState(*select_lanes(active, s, state))
-        rest = select_lanes(active, (merit, xs, ys, cnt, m_restart), rest)
-        anchors = select_lanes(active, new_anchors, anchors)
-        its = torch.where(active, its + check_every, its)
-        windows += 1
-        active = (its < max_iters) & (rest[0] > tol)
+                new_anchors = ((s.x, s.y, Kx_c, KTy_c, torch.ones_like(aok))
+                               + new_anchors[5:])
+            # lanes that had stopped keep their state (the vmapped select)
+            state = PDHGState(*select_lanes(active, s, state))
+            rest = select_lanes(active, (merit, xs, ys, cnt, m_restart), rest)
+            anchors = select_lanes(active, new_anchors, anchors)
+            its = torch.where(active, its + check_every, its)
+            windows += 1
+            active = (its < max_iters) & (rest[0] > tol)
         yield
         # the one host read of the window
-        if not read(active.any()):
+        with spans.span("loop.read"):
+            go = read(active.any())
+        spans.count("host_reads")
+        if not go:
             break
     return state.x, state.y, its, rest[0], windows
 

@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from .._device import resolve_device
 from ..interop import Draws, lp_tensors, place_draws
 from . import engine
@@ -156,16 +157,17 @@ def prepare(lp, opts: PDHGOptions, device=None):
     Pock–Chambolle diagonals.  Returns ``(scaled, T, Sigma)``."""
     dev = resolve_device(device)
     dt = torch_dtype(opts.dtype)
-    t = lp_tensors(lp, dev, dt)
-    scaled = precond_mod.apply_ruiz(t.K, t.b, t.c, t.lb, t.ub,
-                                    iters=opts.ruiz_iters)
-    del t
-    if opts.use_diag_precond:
-        T, Sigma = precond_mod.diagonal_precondition(scaled.K)
-    else:
-        m, n = scaled.K.shape
-        T = torch.ones(n, dtype=dt, device=dev)
-        Sigma = torch.ones(m, dtype=dt, device=dev)
+    with spans.span("solve.prepare"):
+        t = lp_tensors(lp, dev, dt)
+        scaled = precond_mod.apply_ruiz(t.K, t.b, t.c, t.lb, t.ub,
+                                        iters=opts.ruiz_iters)
+        del t
+        if opts.use_diag_precond:
+            T, Sigma = precond_mod.diagonal_precondition(scaled.K)
+        else:
+            m, n = scaled.K.shape
+            T = torch.ones(n, dtype=dt, device=dev)
+            Sigma = torch.ones(m, dtype=dt, device=dev)
     return scaled, T, Sigma
 
 
@@ -368,15 +370,17 @@ def solve(
 
 def _norm_estimate(Kf, T, Sigma, opts: PDHGOptions, v0):
     """rho = ||Sigma^1/2 K T^1/2||_2 by Lanczos (or power iteration) on
-    the symmetric block M, which exists only inside this call."""
-    Keff = torch.sqrt(Sigma)[:, None] * Kf * torch.sqrt(T)[None, :]
-    M = build_sym_block(Keff)
-    del Keff
-    if opts.norm_backend == "power":
-        return power_iteration_mv(lambda v: torch.mv(M, v), M.shape[0],
-                                  M.dtype, iters=opts.lanczos_iters, v0=v0,
-                                  device=M.device)
-    return lanczos_svd_jit(M, k_max=opts.lanczos_iters, v0=v0)
+    the symmetric block M, which exists only inside this call (the span
+    ``solve.norm``)."""
+    with spans.span("solve.norm"):
+        Keff = torch.sqrt(Sigma)[:, None] * Kf * torch.sqrt(T)[None, :]
+        M = build_sym_block(Keff)
+        del Keff
+        if opts.norm_backend == "power":
+            return power_iteration_mv(lambda v: torch.mv(M, v), M.shape[0],
+                                      M.dtype, iters=opts.lanczos_iters,
+                                      v0=v0, device=M.device)
+        return lanczos_svd_jit(M, k_max=opts.lanczos_iters, v0=v0)
 
 
 def solve_jit(
@@ -403,65 +407,76 @@ def solve_jit(
     iterate and the norm estimate's start vector (see ``interop.Draws``);
     by default they are drawn from generators seeded with ``opts.seed +
     1`` and 0.
+
+    The call is the span ``solve`` (m, n, dtype), over ``solve.prepare``,
+    ``solve.norm``, the loop's spans and ``solve.result``.
     """
     dev = resolve_device(device)
     if opts.norm_backend not in NORM_BACKENDS:
         raise ValueError(f"unknown norm_backend {opts.norm_backend!r}; "
                          f"expected one of {NORM_BACKENDS}")
     static = opts_static(opts, sigma_read)
-    scaled, T, Sigma = prepare(lp, opts, dev)
-    dt = scaled.K.dtype
+    m, n = lp.K.shape
+    with spans.span("solve", m=int(m), n=int(n),
+                    dtype=str(torch_dtype(opts.dtype)).split(".")[-1]):
+        scaled, T, Sigma = prepare(lp, opts, dev)
+        dt = scaled.K.dtype
 
-    def on_dev(a):
-        if not torch.is_tensor(a):
-            a = np.array(a)     # a writable copy (JAX arrays are read-only)
-        return torch.as_tensor(a, dtype=dt, device=dev)
+        def on_dev(a):
+            if not torch.is_tensor(a):
+                # a writable copy (JAX arrays are read-only)
+                a = np.array(a)
+            return torch.as_tensor(a, dtype=dt, device=dev)
 
-    Kf = scaled.K if K_fwd is None else on_dev(K_fwd).contiguous()
-    Ka = None if K_adj is None else on_dev(K_adj).contiguous()
-    x0, y0, v0 = place_draws(draws, scaled.lb, scaled.ub)
-    if opts.norm_override is not None:
-        rho = torch.tensor(float(opts.norm_override), dtype=dt, device=dev)
-    else:
-        rho = engine.lemma2_margin(
-            _norm_estimate(Kf, T, Sigma, opts, v0), sigma_read)
-    generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
+        Kf = scaled.K if K_fwd is None else on_dev(K_fwd).contiguous()
+        Ka = None if K_adj is None else on_dev(K_adj).contiguous()
+        x0, y0, v0 = place_draws(draws, scaled.lb, scaled.ub)
+        if opts.norm_override is not None:
+            rho = torch.tensor(float(opts.norm_override), dtype=dt,
+                               device=dev)
+        else:
+            rho = engine.lemma2_margin(
+                _norm_estimate(Kf, T, Sigma, opts, v0), sigma_read)
+        generator = torch.Generator(device=dev).manual_seed(opts.seed + 1)
 
-    def loop(read):
-        return engine.drain(engine.solve_core(
-            Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, rho,
-            generator, static, x0=x0, y0=y0, read=read))
+        def loop(read):
+            return engine.drain(engine.solve_core(
+                Kf, Ka, scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma,
+                rho, generator, static, x0=x0, y0=y0, read=read))
 
-    if transfer_sanitize:
-        from ..runtime import sanitize   # runtime imports this module
+        if transfer_sanitize:
+            from ..runtime import sanitize   # runtime imports this module
 
-        with sanitize.no_implicit_transfers():
-            x, y, _, merit, windows = loop(sanitize.host_read)
-    else:
-        x, y, _, merit, windows = loop(bool)
-    # one instance is active in every window it runs
-    it = windows * opts.check_every
-    x_orig = scaled.unscale_x(x).cpu().numpy()
-    y_orig = scaled.unscale_y(y).cpu().numpy()
-    res = kkt_residuals(
-        x, x, y, scaled.c, scaled.b, torch.mv(scaled.K, x),
-        torch.mv(scaled.K.T, y), lb=scaled.lb, ub=scaled.ub)
-    lanczos_mvms = 0 if opts.norm_override is not None else opts.lanczos_iters
-    merit_f = float(merit)
-    # a non-finite merit exits the loop (NaN > tol is false): report it
-    # as divergence, not as a clean iteration limit
-    if not np.isfinite(merit_f):
-        status = "diverged"
-    elif merit_f <= opts.tol:
-        status = "optimal"
-    else:
-        status = "iteration_limit"
-    return PDHGResult(
-        status=status,
-        x=x_orig, y=y_orig, obj=float(np.asarray(lp.c) @ x_orig),
-        iterations=it, residuals=res, sigma_max=float(rho),
-        lanczos_iters=lanczos_mvms,
-        mvm_calls=engine.mvm_accounting(it, opts.check_every, lanczos_mvms,
-                                        restart=opts.restart),
-        merit=merit_f,
-    )
+            with sanitize.no_implicit_transfers():
+                x, y, _, merit, windows = loop(sanitize.host_read)
+        else:
+            x, y, _, merit, windows = loop(bool)
+        with spans.span("solve.result"):
+            # one instance is active in every window it runs
+            it = windows * opts.check_every
+            x_orig = scaled.unscale_x(x).cpu().numpy()
+            y_orig = scaled.unscale_y(y).cpu().numpy()
+            res = kkt_residuals(
+                x, x, y, scaled.c, scaled.b, torch.mv(scaled.K, x),
+                torch.mv(scaled.K.T, y), lb=scaled.lb, ub=scaled.ub)
+            lanczos_mvms = (0 if opts.norm_override is not None
+                            else opts.lanczos_iters)
+            merit_f = float(merit)
+            # a non-finite merit exits the loop (NaN > tol is false): report
+            # it as divergence, not as a clean iteration limit
+            if not np.isfinite(merit_f):
+                status = "diverged"
+            elif merit_f <= opts.tol:
+                status = "optimal"
+            else:
+                status = "iteration_limit"
+            return PDHGResult(
+                status=status,
+                x=x_orig, y=y_orig, obj=float(np.asarray(lp.c) @ x_orig),
+                iterations=it, residuals=res, sigma_max=float(rho),
+                lanczos_iters=lanczos_mvms,
+                mvm_calls=engine.mvm_accounting(it, opts.check_every,
+                                                lanczos_mvms,
+                                                restart=opts.restart),
+                merit=merit_f,
+            )

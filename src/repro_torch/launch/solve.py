@@ -39,12 +39,19 @@ cluster, ``runtime.ClusterBatchSolver``); ``distributed`` runs
 ranks (one rank without one), or ``solve_dist_auto`` with ``--cluster
 auto``.  ``--device`` is the crossbar device model of the batch stream,
 as in the reference; the hardware is chosen with ``--torch-device``.
+``--trace PATH`` records the run's spans (``repro_torch.spans``) and
+writes them, with the device's idle seconds by span on a card, to PATH.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 
+import torch
+
+from .. import spans
 from ..core.engine import KERNELS, STEP_RULES
 from ..core.lanczos import NORM_BACKENDS
 from ..core.pdhg import PDHGOptions, solve_jit
@@ -162,6 +169,12 @@ def main(argv=None):
     ap.add_argument("--tol", type=float, default=1e-6)
     ap.add_argument("--max-iters", type=int, default=40000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the run's spans (repro_torch.spans) and, "
+                         "on a card, trace it with a CUDA-only "
+                         "torch.profiler; write the records, the counters "
+                         "and the device's idle seconds by the span open "
+                         "on the host to PATH as JSON")
     args = ap.parse_args(argv)
     crossbar_backend = (args.backend in CROSSBAR_BACKENDS
                         or (args.backend == "batch"
@@ -201,7 +214,13 @@ def main(argv=None):
             and args.device != "none":
         ap.error("--cluster/--pods do not combine with --device: the "
                  "crossbar batch path is single-process")
+    if args.trace is not None:
+        return _traced(args.trace, args.torch_device,
+                       lambda: _run(args, crossbar_backend))
+    return _run(args, crossbar_backend)
 
+
+def _run(args, crossbar_backend: bool):
     from ..runtime import cluster as cluster_mod
 
     info = cluster_mod.init_cluster(args.cluster, backend=args.dist_backend,
@@ -255,6 +274,52 @@ def main(argv=None):
               f"write={led.write_latency_s:.4f}s read={led.read_latency_s:.4f}s")
     cluster_mod.shutdown()
     return res
+
+
+def _device_intervals(prof) -> list:
+    """``(start_ns, end_ns)`` of every event a profile saw on the card
+    (kernels, copies, sets; not the card's copies of host ranges)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        kind = getattr(e, "activity_type", lambda: None)()
+        if e.device_type() == cuda and kind != "gpu_user_annotation":
+            out.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _traced(path: str, device: str, run):
+    """``run()`` with spans recorded and, on a card, under a CUDA-only
+    ``torch.profiler``; writes the trace to ``path`` (JSON: the records,
+    the counters, host seconds by span and the device's idle seconds by
+    the innermost span open on the host, or null without a card) and
+    returns what ``run`` returned."""
+    cuda = torch.device(device).type == "cuda"
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if cuda
+        else contextlib.nullcontext())
+    with spans.recording(), prof:
+        out = run()
+        if cuda:
+            torch.cuda.synchronize()
+    recs = spans.records()
+    idle = (spans.idle_by_span(_device_intervals(prof), recs) if cuda
+            else None)
+    doc = {"device": (torch.cuda.get_device_name() if cuda else "cpu"),
+           "records": recs, "counters": spans.counters(),
+           "seconds_by_span": spans.seconds_by_name(recs),
+           "idle_s": None if idle is None else sum(idle.values()),
+           "idle_by_span": idle}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    top = sorted((idle or doc["seconds_by_span"]).items(),
+                 key=lambda kv: -kv[1])[:4]
+    print(f"trace: {len(recs)} spans "
+          f"({doc['counters']['dropped']} dropped), "
+          + ("idle" if idle is not None else "host")
+          + " " + " ".join(f"{k}={v:.3f}s" for k, v in top)
+          + f" -> {path}")
+    return out
 
 
 def _solve_distributed(args, lp, opts):

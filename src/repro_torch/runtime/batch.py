@@ -53,12 +53,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
-import time
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import spans
 from .._device import resolve_device
 from ..core import engine
 from ..core.lanczos import (
@@ -386,15 +386,17 @@ class BucketPipeline:
             rho = torch.full((batch,), float(self.opts.norm_override),
                              dtype=dtype, device=self.torch_device)
             return rho, rho
-        raw = _estimate_norm_mv(mv, dim, batch, draws.v0, self.opts,
-                                rho_seeds)
-        return raw, engine.lemma2_margin(raw, self.sigma_read)
+        with spans.span("solve.norm"):
+            raw = _estimate_norm_mv(mv, dim, batch, draws.v0, self.opts,
+                                    rho_seeds)
+            return raw, engine.lemma2_margin(raw, self.sigma_read)
 
     def run(self, arrays: list, draws: LaneDraws, rho_seeds=None,
             donate: bool = False, read: Callable = bool):
         K, b, c, lb, ub = arrays
-        (Ks, bs, cs, lbs, ubs, T, Sigma, D1, D2) = prep_scale(
-            K, b, c, lb, ub, self.opts)
+        with spans.span("solve.prepare"):
+            (Ks, bs, cs, lbs, ubs, T, Sigma, D1, D2) = prep_scale(
+                K, b, c, lb, ub, self.opts)
         if donate:
             arrays[0] = K = None
         B, m, n = Ks.shape
@@ -476,8 +478,9 @@ class SparseBucketPipeline(BucketPipeline):
     def run(self, arrays: list, draws: LaneDraws, rho_seeds=None,
             donate: bool = False, read: Callable = bool):
         kd, ki, b, c, lb, ub = arrays
-        (d, bs, cs, lbs, ubs, T, Sigma, D1, D2, row, col) = \
-            _prep_one_sparse(kd, ki, b, c, lb, ub, self.opts)
+        with spans.span("solve.prepare"):
+            (d, bs, cs, lbs, ubs, T, Sigma, D1, D2, row, col) = \
+                _prep_one_sparse(kd, ki, b, c, lb, ub, self.opts)
         if donate:
             arrays[0] = kd = None
         B, m, n = bs.shape[0], bs.shape[-1], cs.shape[-1]
@@ -561,11 +564,12 @@ class EllBucketPipeline(BucketPipeline):
     def run(self, arrays: list, draws: LaneDraws, rho_seeds=None,
             donate: bool = False, read: Callable = bool):
         df, cf, da, ca, b, c, lb, ub = arrays
-        (sf, sa, bs, cs, lbs, ubs, T, Sigma, D1, D2, idx_f, idx_a) = \
-            _prep_one_ell(df, cf, da, ca, b, c, lb, ub, self.opts)
-        # every MVM of the bucket stops at each row's last stored slot;
-        # the scaled forms store no slot that df/da leave empty
-        rl_f, rl_a = ell_row_len(df, cf), ell_row_len(da, ca)
+        with spans.span("solve.prepare"):
+            (sf, sa, bs, cs, lbs, ubs, T, Sigma, D1, D2, idx_f, idx_a) = \
+                _prep_one_ell(df, cf, da, ca, b, c, lb, ub, self.opts)
+            # every MVM of the bucket stops at each row's last stored
+            # slot; the scaled forms store no slot that df/da leave empty
+            rl_f, rl_a = ell_row_len(df, cf), ell_row_len(da, ca)
         if donate:
             arrays[0] = arrays[2] = df = da = None
         B, m, n = bs.shape[0], bs.shape[-1], cs.shape[-1]
@@ -655,9 +659,11 @@ class BatchSolver:
     a time).  ``donate_min_bytes`` is the stacked-operator size beyond
     which the raw stack is freed once scaled.  ``last_stream_stats``
     records, per ``solve_stream`` call, the host bytes each stacking path
-    built, the dispatch/collect times, each bucket's windows and
-    ``compiles``: cache misses plus kernel builds (``runtime.sanitize``;
-    a warm pass over a bucket mix served before must report 0).
+    built, the dispatch/collect times (the spans ``serve.dispatch`` and
+    ``serve.collect``, which always time themselves), each bucket's
+    windows and ``compiles``: cache misses plus kernel builds
+    (``runtime.sanitize``; a warm pass over a bucket mix served before
+    must report 0).
     ``transfer_sanitize=True`` runs every pipeline under
     ``sanitize.no_implicit_transfers()``, which allows only the stacking
     upload and the one host read a window.
@@ -668,6 +674,11 @@ class BatchSolver:
     ``NORM_REFINE_ITERS``-step power refinement floored at the cached
     value instead of the full estimate; the twin is built on the cold
     pass, so warm streams stay at zero compiles.
+
+    A call is the span ``serve`` (``repro_torch.spans``) over
+    ``serve.group`` (bucketing), each bucket's ``serve.stack`` and
+    ``serve.upload``, and ``serve.step`` (one resumption of a bucket's
+    pipeline, its loop's spans inside).
 
     ``torch_device`` is the hardware (default the card, or the
     ``mesh``'s device).  ``mesh`` shards each bucket's lanes over the
@@ -907,7 +918,7 @@ class BatchSolver:
     def _upload(self, stacked, int_fields=()):
         """The stacking upload (sanctioned under the transfer guard)."""
         dt = torch_dtype(self.opts.dtype)
-        with sanitize.sanctioned():
+        with spans.span("serve.upload"), sanitize.sanctioned():
             return [torch.as_tensor(a, dtype=torch.int32 if i in int_fields
                                     else dt, device=self.torch_device)
                     for i, a in enumerate(stacked)]
@@ -941,27 +952,35 @@ class BatchSolver:
         keys = self._instance_keys(idxs, n_total, B)[lanes]
         positions = (list(idxs) + [n_total + j
                                    for j in range(B - len(idxs))])[lanes]
-        if isinstance(sig, tuple):                       # ("ell", wf, wa)
-            _, wf, wa = sig
-            stacked = stack_problems_ell(members, m=mb, n=nb,
-                                         wf=wf, wa=wa)
-            stats["sparse_stack_bytes"] += sum(a.nbytes for a in stacked)
+        path = ("ell" if isinstance(sig, tuple)
+                else "dense" if sig is None else "sparse")
+        with spans.span("serve.stack", bucket=[mb, nb], path=path) as span:
+            if path == "ell":                            # ("ell", wf, wa)
+                _, wf, wa = sig
+                stacked = stack_problems_ell(members, m=mb, n=nb,
+                                             wf=wf, wa=wa)
+            elif path == "sparse":                       # bare int nnz
+                stacked = stack_problems_sparse(members, m=mb, n=nb,
+                                                nnz=sig)
+            else:
+                stacked = stack_problems([lp.densified() for lp in members],
+                                         m=mb, n=nb)
+            nbytes = sum(a.nbytes for a in stacked)
+            span.set("bytes", nbytes)
+        spans.count(f"stack_bytes.{path}", nbytes)
+        stats["dense_stack_bytes" if path == "dense"
+              else "sparse_stack_bytes"] += nbytes
+        if path == "ell":
             arrays = self._upload(stacked, int_fields=(1, 3))
             donate = self._donate(arrays[0].nbytes + arrays[2].nbytes)
             exe_fn = (lambda s: self._executable_ell(
                 mb, nb, wf, wa, B, dtype, donate=donate, seeded=s))
-        elif sig is not None:                            # bare int nnz
-            stacked = stack_problems_sparse(members, m=mb, n=nb,
-                                            nnz=sig)
-            stats["sparse_stack_bytes"] += sum(a.nbytes for a in stacked)
+        elif path == "sparse":
             arrays = self._upload(stacked, int_fields=(1,))
             donate = self._donate(arrays[0].nbytes)
             exe_fn = (lambda s: self._executable_sparse(
                 mb, nb, sig, B, dtype, donate=donate, seeded=s))
         else:
-            stacked = stack_problems([lp.densified() for lp in members],
-                                     m=mb, n=nb)
-            stats["dense_stack_bytes"] += sum(a.nbytes for a in stacked)
             arrays = self._upload(stacked)
             donate = self._donate(arrays[0].nbytes)
             exe_fn = (lambda s: self._executable(
@@ -999,12 +1018,13 @@ class BatchSolver:
         """Group stream positions by ((m_bucket, n_bucket), sparse sig);
         a pure function of the stream and the solver's configuration."""
         buckets: dict = {}
-        for i, lp in enumerate(lps):
-            sp = bool(getattr(lp, "is_sparse", False)) and \
-                self.supports_sparse
-            sig = self._sparse_signature(lp) if sp else None
-            buckets.setdefault((self._bucket(*lp.K.shape), sig),
-                               []).append(i)
+        with spans.span("serve.group"):
+            for i, lp in enumerate(lps):
+                sp = bool(getattr(lp, "is_sparse", False)) and \
+                    self.supports_sparse
+                sig = self._sparse_signature(lp) if sp else None
+                buckets.setdefault((self._bucket(*lp.K.shape), sig),
+                                   []).append(i)
         return buckets
 
     def _stream(self, k: int):
@@ -1023,7 +1043,8 @@ class BatchSolver:
     def _step(self, job) -> bool:
         """Resume one bucket's pipeline up to its next host read; True
         once it has finished (its outputs then in ``job["out"]``)."""
-        with self._stream(job["k"]), self._guard():
+        with self._stream(job["k"]), self._guard(), \
+                spans.span("serve.step", bucket=job["k"]):
             try:
                 next(job["gen"])
                 return False
@@ -1079,34 +1100,34 @@ class BatchSolver:
             else:
                 done.append(job)
 
-        t0 = time.perf_counter()
         jobs = []
-        for k, (((mb, nb), sig), idxs) in enumerate(buckets.items()):
-            group = [lps[i] for i in idxs]
-            with self._stream(k), self._guard():
-                gen = self._dispatch_bucket(group, idxs, len(lps), mb, nb,
-                                            sig, stats, draws)
-            job = {"k": k, "gen": gen, "bucket": ((mb, nb), sig),
-                   "idxs": idxs}
-            if self.async_dispatch:
-                if self._step(job):
-                    finish(job)
+        with spans.timed("serve.dispatch") as phase:
+            for k, (((mb, nb), sig), idxs) in enumerate(buckets.items()):
+                group = [lps[i] for i in idxs]
+                with self._stream(k), self._guard():
+                    gen = self._dispatch_bucket(group, idxs, len(lps), mb,
+                                                nb, sig, stats, draws)
+                job = {"k": k, "gen": gen, "bucket": ((mb, nb), sig),
+                       "idxs": idxs}
+                if self.async_dispatch:
+                    if self._step(job):
+                        finish(job)
+                    else:
+                        jobs.append(job)
                 else:
-                    jobs.append(job)
-            else:
-                while not self._step(job):
-                    pass
-                finish(job)
-        stats["dispatch_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        while jobs:
-            for job in list(jobs):
-                if self._step(job):
-                    jobs.remove(job)
+                    while not self._step(job):
+                        pass
                     finish(job)
-        for job in sorted(done, key=lambda j: j["k"]):
-            self._finish(job, lps, results, stats)
-        stats["collect_s"] += time.perf_counter() - t0
+        stats["dispatch_s"] += phase.seconds
+        with spans.timed("serve.collect") as phase:
+            while jobs:
+                for job in list(jobs):
+                    if self._step(job):
+                        jobs.remove(job)
+                        finish(job)
+            for job in sorted(done, key=lambda j: j["k"]):
+                self._finish(job, lps, results, stats)
+        stats["collect_s"] += phase.seconds
 
     def solve_stream(self, lps: Sequence[StandardLP],
                      draws: Optional[Callable] = None):
@@ -1120,22 +1141,25 @@ class BatchSolver:
         included) instead of the per-lane generators.
         """
         lps = list(lps)
-        buckets = self._group_buckets(lps)
-        mine, remote = self._route(buckets)
-        results: List[Optional[object]] = [None] * len(lps)
-        self._seeded_idxs = set()
-        self._draws = draws
-        stats = {"n_buckets": len(buckets), "n_local_buckets": len(mine),
-                 "dense_stack_bytes": 0,
-                 "sparse_stack_bytes": 0, "donated_buckets": 0,
-                 "norm_seeded_buckets": 0,
-                 "dispatch_s": 0.0, "collect_s": 0.0, "compiles": 0,
-                 "bucket_windows": []}
-        compiles0 = sanitize.compile_counts()["compiles"]
-        self._serve(mine, lps, results, stats, draws)
-        self._gather_remote(remote, lps, results, stats)
-        stats["compiles"] = (sanitize.compile_counts()["compiles"]
-                             - compiles0)
+        with spans.span("serve", lps=len(lps)) as span:
+            buckets = self._group_buckets(lps)
+            span.set("buckets", len(buckets))
+            mine, remote = self._route(buckets)
+            results: List[Optional[object]] = [None] * len(lps)
+            self._seeded_idxs = set()
+            self._draws = draws
+            stats = {"n_buckets": len(buckets),
+                     "n_local_buckets": len(mine),
+                     "dense_stack_bytes": 0,
+                     "sparse_stack_bytes": 0, "donated_buckets": 0,
+                     "norm_seeded_buckets": 0,
+                     "dispatch_s": 0.0, "collect_s": 0.0, "compiles": 0,
+                     "bucket_windows": []}
+            compiles0 = sanitize.compile_counts()["compiles"]
+            self._serve(mine, lps, results, stats, draws)
+            self._gather_remote(remote, lps, results, stats)
+            stats["compiles"] = (sanitize.compile_counts()["compiles"]
+                                 - compiles0)
         self.last_stream_stats = stats
         return results  # type: ignore[return-value]
 

@@ -93,8 +93,9 @@ MISSING.update({("runtime", n): "runtime.compat (JAX only)"
 
 # the port's own modules, with no counterpart in the reference
 # (models.scan: the reference's scans are lax.scan, the port's a loop the
-# dry run counts from its trips)
-PORT_OWN = ("_device", "interop", "kernels._build", "models.scan")
+# dry run counts from its trips; spans: the reference has no spans)
+PORT_OWN = ("_device", "interop", "kernels._build", "models.scan",
+            "spans")
 # reference modules read from their source, never imported here:
 # importing repro.launch.dryrun asks XLA for 512 CPU devices
 # (runtime.compat.request_cpu_devices), which a test process must not do
