@@ -9,6 +9,10 @@
         # "probe" line a scale)
     python3 chip_smoke.py --lm            # only phase 9, the LM serving
     python3 chip_smoke.py --train         # only phase 10, the LM training
+    python3 chip_smoke.py --crossover
+        # only the dense window's sweep: stepped against B3's transpose
+        # form on K = m x 2m and the small stream's buckets, f64 and f32
+        # (one "crossover" line a shape, then all rows as one JSON line)
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -28,15 +32,18 @@ Phases, in order; any failure raises and exits non-zero:
    the plain version and a yardstick; B4's, B5's and B3's transpose
    form's registers and resident blocks an SM;
 4. the dense path: the CLI default (``gen-ip002``), then the full-width
-   dense instance solved three times: stepped as a CUDA graph a window
-   (the schedule once a window, B1's and B2's step forms every step),
-   the same with every window eager (``engine.solve_core(...,
-   graph=False)``: the same iterations, ``x`` bit for bit, the same
-   launches, each counted where it launches), and with the
-   check-window megakernel (B3's transpose form every window, its
-   two-matrix form never).  All must reach ``optimal`` on the same
-   iteration count, with the launch counters showing each kernel on its
-   path;
+   dense instance solved four times: with default options (B3's
+   transpose form every window, as ``engine.transpose_form_window``
+   picks it), with the check-window megakernel (the same launches and
+   bits as the default; the two-matrix form never), stepped as a CUDA
+   graph a window (the schedule once a window, cuBLAS's GEMVs and B1's
+   and B2's step forms every step: ``engine.pdhg_loop`` on
+   ``engine.dense_operator`` from the default's start,
+   ``stepped_solve``), and the same with every window eager (the same
+   iterations, ``x`` bit for bit, the same launches, each counted where
+   it launches).  All must reach ``optimal`` on the same iteration
+   count, the stepped and the default ``x`` within 1e-8, with the launch
+   counters showing each kernel on its path;
 5. the crossbar paths: the CLI's ``--backend taox`` and ``--backend
    epiram --refine-rounds 2`` and the host driver on the crossbar
    simulation with B6 (``gen-ip002``, each within the paper's 5e-2
@@ -676,6 +683,118 @@ def phase_dense_forms(steps: int):
     return rows
 
 
+CROSSOVER_ROWS = (256, 512, 1024, 1536, 2048, 2560, 3072, 3840)
+# other aspects at a fixed K: tall and square rows of 128..4096 at 105 MB
+# (2560 x 5120's f64 bytes, twice the L2) and at 16.8 MB (1024 x 2048's,
+# inside it), and rows past the ring form (the wide form in f64)
+CROSSOVER_COLS = (128, 256, 512, 1024, 2048, 4096)
+CROSSOVER_BYTES = (104857600, 16777216)
+CROSSOVER_WIDE = ((2048, 16384), (4096, 16384), (1024, 32768))
+CROSSOVER_WINDOWS = (5, 25)
+
+
+def phase_crossover(steps: int) -> list:
+    """The dense window both ways on one card: the stepped window of a
+    noiseless dense operator (``engine.dense_operator(K, K.mT)``, a CUDA
+    graph a window) and B3's transpose form (``engine.make_fused_dense(K,
+    None, ...)``), on K = m x 2m for each of ``CROSSOVER_ROWS`` with one
+    lane, on the CLI's small dense stream's buckets ((1, 8, 16),
+    (1, 16, 32), (1, 32, 64)), on K of each of ``CROSSOVER_BYTES`` with
+    rows of each of ``CROSSOVER_COLS`` and on ``CROSSOVER_WIDE``, in f64
+    and f32, with steps scaled to K's norm.  Each shape is timed as a
+    window of ``steps`` steps (the call as the loop makes it, and the
+    card's time alone, in turns: stepped, fused, fused, stepped) and in
+    ``engine.pdhg_loop`` with the check, tol 0 so that no window stops
+    it: run for each count of ``CROSSOVER_WINDOWS``, the difference of
+    the two walls over the difference of the counts is a window's steady
+    cost with its check, and what is left of the shorter run is the
+    loop's own set-up (the stepped loop's capture).  Prints every row
+    and the card as one JSON line at the end and returns the rows."""
+    import torch
+
+    from repro_torch.core import engine
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        size = torch.empty((), dtype=dt).element_size()
+        shapes = ([(None, m, 2 * m) for m in CROSSOVER_ROWS]
+                  + [(1, 8, 16), (1, 16, 32), (1, 32, 64)]
+                  + [(None, nbytes // (n * size), n)
+                     for nbytes in CROSSOVER_BYTES for n in CROSSOVER_COLS]
+                  + [(None, m, n) for m, n in CROSSOVER_WIDE])
+        for B, m, n in shapes:
+            w = _window_inputs(g, (B or 1) * m, n, dt)
+            del w["K_adj"]
+            # ||K|| is about 1 + sqrt(m / n): keep tau sigma ||K||^2 near
+            # a quarter, so that no window of a tall K diverges
+            w["tau"] = w["sigma"] = _scalar(0.5 / (1 + (m / n) ** 0.5), dt)
+            if B is not None:
+                w = {k: (v.view(B, m, n) if k == "K" else
+                         v.view(B, -1) if v.dim() == 1 else v.expand(B)
+                         .contiguous()) for k, v in w.items()}
+            K = w["K"]
+            vec_args = (w["b"], w["c"], w["lb"], w["ub"], w["T"],
+                        w["Sigma"])
+            stepped_op = engine.dense_operator(K, K.mT)
+            fused_op = stepped_op._replace(fuse=engine.make_fused_dense(
+                K, None, *vec_args, 0.0))
+            state0 = engine.PDHGState(w["x"], w["x_prev"], w["x_bar"],
+                                      w["y"], w["tau"], w["sigma"])
+            xs0, ys0 = torch.zeros_like(w["x"]), torch.zeros_like(w["y"])
+            win = engine.SteppedWindow(
+                stepped_op, engine.CUDA_UPDATES, *vec_args, 0.0, steps,
+                w["x"], w["y"], capture=True)
+            active = torch.ones(w["tau"].shape, dtype=torch.bool,
+                                device="cuda")
+            calls = {"stepped": partial(win.run, state0, xs0, ys0),
+                     "fused": partial(fused_op.fuse, state0, steps, active)}
+            for _ in range(3):           # eager, captured, replayed
+                calls["stepped"]()
+
+            def loop(op, windows):
+                out, wall, _ = _timed(lambda: engine.drain(engine.pdhg_loop(
+                    op, engine.CUDA_UPDATES, *vec_args, w["x"], w["y"],
+                    w["tau"], w["sigma"], max_iters=windows * steps,
+                    tol=0.0, gamma=0.0, check_every=steps,
+                    restart_beta=0.5)))
+                check(out[4] == windows, f"crossover: {out[4]} windows")
+                return wall
+
+            ops = {"stepped": stepped_op, "fused": fused_op}
+            lo, hi = CROSSOVER_WINDOWS
+            times = {}
+            for name in ("stepped", "fused", "fused", "stepped"):
+                t = times.setdefault(name, {"call": [], "device": [],
+                                            "loop": [], "loop_setup": []})
+                t["call"].append(cuda_ms(calls[name]))
+                t["device"].append(cuda_ms(calls[name], reps=10,
+                                           queued=True))
+                loop(ops[name], lo)      # warm
+                short, long_ = loop(ops[name], lo), loop(ops[name], hi)
+                per = (long_ - short) / (hi - lo)
+                t["loop"].append(1e3 * per)
+                t["loop_setup"].append(1e3 * (short - lo * per))
+            row = dict(dtype=dname, shape=[B, m, n] if B else [m, n],
+                       k_bytes=K.numel() * K.element_size())
+            for name, t in times.items():
+                for k, v in t.items():
+                    row[f"{name}_{k}_ms"] = statistics.median(v)
+            for k in ("call", "device", "loop"):
+                row[f"fused_over_stepped_{k}"] = (row[f"fused_{k}_ms"]
+                                                  / row[f"stepped_{k}_ms"])
+            print("crossover " + " ".join(
+                f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in row.items()), flush=True)
+            rows.append(row)
+            del w, K, win, calls, ops, stepped_op, fused_op, state0
+            torch.cuda.empty_cache()
+    print(json.dumps({"card": nvidia_smi(), "steps": steps, "rows": rows}),
+          flush=True)
+    return rows
+
+
 def phase_crossbar_kernel(dim: int, sigma_read: float):
     """B6 against its plain version: ragged, a batch of 3, zero padding,
     and the full-width symmetric block (dim x dim), timed there beside
@@ -816,6 +935,65 @@ def eager_windows():
         engine.solve_core = core
 
 
+def stepped_solve(lp, opts, rho: float, graph: bool = True,
+                  device: str = "cuda"):
+    """``lp`` as ``solve_jit(lp, opts)`` solves it, with every window the
+    stepped window of the default dense operator: ``engine.pdhg_loop``
+    on ``engine.dense_operator(K, K^T)`` with no fuse hook (cuBLAS's
+    GEMVs and B1's and B2's step forms every step), a CUDA graph a
+    window unless ``graph`` is False (then each launch is counted where
+    it launches, not added by a replay).  It starts where ``solve_jit``
+    starts: its preparation, its start iterate, and ``rho``, the norm
+    estimate that ``solve_jit`` reports as ``sigma_max``.  Returns what
+    the comparisons read: ``status``, ``iterations``, ``merit``,
+    ``obj``, ``x`` and ``y``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.pdhg import prepare
+
+    scaled, T, Sigma = prepare(lp, opts, device)
+    K = scaled.K
+    rho = torch.tensor(rho, dtype=K.dtype, device=K.device)
+    x0, y0 = engine.draw_init(
+        torch.Generator(device=K.device).manual_seed(opts.seed + 1),
+        *K.shape, scaled.lb, scaled.ub, K.dtype)
+    x, y, _, merit, windows = engine.drain(engine.pdhg_loop(
+        engine.dense_operator(K, K.mT), engine.make_updates(opts.kernel),
+        scaled.b, scaled.c, scaled.lb, scaled.ub, T, Sigma, x0, y0,
+        opts.eta / (opts.omega * rho), opts.eta * opts.omega / rho,
+        max_iters=opts.max_iters, tol=opts.tol, gamma=opts.gamma,
+        check_every=opts.check_every, restart_beta=opts.restart_beta,
+        restart=opts.restart, step_rule=opts.step_rule, eta=opts.eta,
+        graph=graph))
+    x = scaled.unscale_x(x).cpu().numpy()
+    merit = float(merit)
+    return types.SimpleNamespace(
+        status="optimal" if merit <= opts.tol else "iteration_limit",
+        iterations=windows * opts.check_every, merit=merit,
+        obj=float(np.asarray(lp.c) @ x), x=x,
+        y=scaled.unscale_y(y).cpu().numpy())
+
+
+def dense_default_launches(m: int, n: int, iterations: int) -> dict:
+    """The launches of a default noiseless dense solve of ``iterations``
+    steps on an (m, n) f64 K on this card: B3's transpose form once a
+    window where ``engine.transpose_form_window`` picks it, else the
+    stepped window's."""
+    import torch
+
+    from repro_torch.core import engine
+
+    K = torch.empty((m, n), dtype=torch.float64, device="cuda")
+    op = engine.dense_operator(K, K.mT)
+    if engine.transpose_form_window(op, K, None, 0.0, "cuda"):
+        return launches(fused_dense_steps_kt=iterations // CHECK_EVERY)
+    return stepped_launches(iterations)
+
+
 def graphs() -> dict:
     from repro_torch.core import engine
 
@@ -831,8 +1009,9 @@ def phase_main(instance: str):
     from repro_torch.core.pdhg import PDHGOptions, solve_jit
     from repro_torch.launch import solve as cli
 
-    # the CLI default: gen-ip002, stepped, CUDA update kernels, a CUDA
-    # graph a window
+    # the CLI default: gen-ip002, each window as the engine's rule picks
+    # it (B3's transpose form on a card, or the stepped window's step
+    # pair and a CUDA graph a window)
     (res0, _), cli_counts = _counted(lambda: _run(
         "cli gen-ip002", lambda: cli.main(["--instance", "gen-ip002"])))
     lp0 = cli.load_instance("gen-ip002")
@@ -841,7 +1020,7 @@ def phase_main(instance: str):
           flush=True)
     check(res0.status == "optimal" and rel0 <= 1e-4,
           f"gen-ip002: {res0.status}, rel err {rel0:.3e}")
-    want0 = stepped_launches(res0.iterations)
+    want0 = dense_default_launches(*lp0.K.shape, res0.iterations)
     check(cli_counts == want0,
           f"gen-ip002 launches {cli_counts}, expected {want0}")
     counts = {"cli gen-ip002": cli_counts}
@@ -854,54 +1033,69 @@ def phase_main(instance: str):
                        check_every=CHECK_EVERY)
     mega = dataclasses.replace(opts, megakernel=True)
     results = {}
-    # stepped as a CUDA graph a window (the default), stepped with every
-    # window eager (the comparison's switch), megakernel
-    for label, o, ctx in (("stepped", opts, contextlib.nullcontext),
-                          ("stepped eager", opts, eager_windows),
-                          ("megakernel", mega, contextlib.nullcontext)):
-        with ctx():
-            (res, wall), delta = _counted(lambda: _run(
-                f"{instance} {label}", lambda: solve_jit(lp, o)))
+
+    def rho():
+        return results["default"][0].sigma_max
+
+    # the default (B3's transpose form, by engine.transpose_form_window),
+    # the megakernel, and stepped as a CUDA graph a window and with every
+    # window eager, from the default's start (stepped_solve)
+    for label, solve in (
+            ("default", lambda: solve_jit(lp, opts)),
+            ("megakernel", lambda: solve_jit(lp, mega)),
+            ("stepped", lambda: stepped_solve(lp, opts, rho())),
+            ("stepped eager",
+             lambda: stepped_solve(lp, opts, rho(), graph=False))):
+        (res, wall), delta = _counted(lambda: _run(f"{instance} {label}",
+                                                   solve))
         g = graphs()
         rel = abs(res.obj - lp.obj_opt) / abs(lp.obj_opt)
         print(f"main {instance} {label}: objective={res.obj:.9f} "
               f"known={lp.obj_opt:.9f} rel_err={rel:.3e} "
-              f"mvm_calls={res.mvm_calls} launches={delta} graphs={g}",
-              flush=True)
+              f"mvm_calls={getattr(res, 'mvm_calls', None)} "
+              f"launches={delta} graphs={g}", flush=True)
         check(res.status == "optimal" and rel <= 1e-4,
               f"{instance} {label}: {res.status}, rel err {rel:.3e}")
-        check(res.mvm_calls == engine.mvm_accounting(
-            res.iterations, CHECK_EVERY, opts.lanczos_iters, restart=True),
-            f"{instance} {label}: mvm_calls {res.mvm_calls}")
+        if not label.startswith("stepped"):
+            check(res.mvm_calls == engine.mvm_accounting(
+                res.iterations, CHECK_EVERY, opts.lanczos_iters,
+                restart=True),
+                f"{instance} {label}: mvm_calls {res.mvm_calls}")
         windows = res.iterations // CHECK_EVERY
-        # the megakernel solve builds its adjoint as K's transpose: B3's
-        # transpose form once a window, its two-matrix form never
-        want = (launches(fused_dense_steps_kt=windows)
-                if label == "megakernel" else
-                stepped_launches(res.iterations))
+        # the default and the megakernel solve build their adjoint as K's
+        # transpose: B3's transpose form once a window, its two-matrix
+        # form never
+        want = (stepped_launches(res.iterations)
+                if label.startswith("stepped") else
+                launches(fused_dense_steps_kt=windows))
         check(delta == want, f"{instance} {label}: launches {delta}, "
                              f"expected {want}")
-        # the first window runs eagerly, the second is captured, and
-        # every window from it on is a replay
+        # stepped as a graph: the first window runs eagerly, the second
+        # is captured, and every window from it on is a replay
         want_g = ({"captures": 1, "replays": windows - 1}
                   if label == "stepped" else {"captures": 0, "replays": 0})
         check(g == want_g, f"{instance} {label}: graphs {g}, expected "
                            f"{want_g}")
         results[label] = (res, wall)
         counts[label] = delta
-    (ra, _), (re, _), (rb, _) = (results["stepped"],
-                                 results["stepped eager"],
-                                 results["megakernel"])
+    (ra, _), (re, _), (rd, _), (rb, _) = (
+        results["stepped"], results["stepped eager"], results["default"],
+        results["megakernel"])
     check(ra.iterations == re.iterations and np.array_equal(ra.x, re.x)
           and np.array_equal(ra.y, re.y),
           f"graph and eager stepped solves differ: {ra.iterations} vs "
           f"{re.iterations} iterations, max|dx|="
           f"{float(abs(ra.x - re.x).max()):.3e}")
-    dx = float(abs(ra.x - rb.x).max())
+    check(rd.iterations == rb.iterations and np.array_equal(rd.x, rb.x)
+          and np.array_equal(rd.y, rb.y),
+          f"default and megakernel solves differ: {rd.iterations} vs "
+          f"{rb.iterations} iterations")
+    dx = float(abs(ra.x - rd.x).max())
     print(f"main {instance}: stepped graph vs eager x bit-identical, "
-          f"stepped vs megakernel max|dx|={dx:.3e}", flush=True)
-    check(ra.iterations == rb.iterations,
-          f"iterations differ: {ra.iterations} vs {rb.iterations}")
+          f"default vs megakernel x bit-identical, stepped vs default "
+          f"max|dx|={dx:.3e}", flush=True)
+    check(ra.iterations == rd.iterations,
+          f"iterations differ: {ra.iterations} vs {rd.iterations}")
     check(dx <= 1e-8, f"x differs by {dx:.3e}")
     return counts, ra
 
@@ -1498,6 +1692,8 @@ def phase_small_streams():
             check(r.status == "optimal" and rel <= 1e-4,
                   f"{label} {lp.name}: {r.status}, rel err {rel:.3e}")
 
+    # every bucket's rows are far shorter than 16 KiB: the default steps
+    # each window (engine.transpose_form_window)
     out, d = run("small dense", ["--instances", SMALL_DENSE])
     exact("small dense", out)
     check(d["dual_step"] == d["primal_step"] > 0
@@ -2534,7 +2730,7 @@ MAIN_PATH_OF = {"dual_update": "host full", "primal_update": "host full",
                 "schedule": "stepped eager", "dual_step": "stepped eager",
                 "primal_step": "stepped eager",
                 "fused_dense_steps": "jit noiseless megakernel",
-                "fused_dense_steps_kt": "megakernel",
+                "fused_dense_steps_kt": "default",
                 "ell_matvec": "stream stepped eager",
                 "fused_ell_steps": "stream megakernel",
                 "crossbar_mvm": "host full"}
@@ -2638,6 +2834,8 @@ def main() -> int:
                     help="run only the LM serving phase")
     ap.add_argument("--train", action="store_true",
                     help="run only the LM training phase")
+    ap.add_argument("--crossover", action="store_true",
+                    help="run only the dense window's crossover sweep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -2677,6 +2875,11 @@ def main() -> int:
                 or "spill" in line):
             print(f"  ptxas {line.strip()}", flush=True)
     attrs = kernel_attrs_lines()
+
+    if args.crossover:
+        phase_crossover(CHECK_EVERY)
+        print(smi, flush=True)
+        return 0
 
     if args.probe:
         for scale in (int(v) for v in args.probe.split(",")):

@@ -27,7 +27,10 @@ device operator (``Operator.capture``) the loop captures one window as a
 CUDA graph and replays it every window after the first, so the host
 issues one replay a window instead of every launch; ``pdhg_loop(...,
 graph=False)`` runs every window eagerly, for tests that compare the
-two.
+two.  ``solve_core`` runs the windows of a noiseless dense operator on
+a card as B3's transpose form instead where K's rows are in the range
+where that form wins (``transpose_form_window``): it reads K once a
+step where the stepped window's two GEMVs read it twice.
 
 State is carried in the pre-extrapolated form of the reference:
 ``x_bar`` for iteration k is produced by iteration k-1's primal update,
@@ -384,6 +387,56 @@ def make_fused_dense(K_fwd, K_adj, b, c, lb, ub, T, Sigma,
                           tau=tau, sigma=sigma), xs, ys)
 
     return fuse
+
+
+#: the rows, in bytes, on which B3's transpose form beat the stepped
+#: window on the H100 (PERF.md, Findings): 16-byte aligned rows of 16 KiB
+#: and up, as far as its shared-memory ring holds a row (64 KiB: 8192
+#: doubles or 16384 floats, ``kt_ring_cols`` in pdhg_common.cuh)
+KT_ROW_BYTES = (16 << 10, 64 << 10)
+
+
+def transpose_form_window(operator: Operator, K_fwd, K_adj,
+                          sigma_read: float, kernel: str) -> bool:
+    """Whether a window of ``operator`` runs as B3's transpose form
+    (``make_fused_dense(K_fwd, None, ...)``) rather than stepped, when
+    no megakernel is asked for.
+
+    The stepped window of a dense operator reads K twice a step, once in
+    each cuBLAS GEMV; the transpose form adds each row block's part of
+    K^T y while its rows of K x_bar are still on chip, so it reads K
+    once a step, in one launch a window.  It needs a dense operator
+    without a fuse hook, noiseless (no read noise to draw between the products),
+    with an adjoint that is exactly K^T (``K_adj`` None: a distinct
+    programmed block is a second matrix to read), the CUDA update
+    kernels (``kernel="torch"`` asks for the plain path) and a card (the
+    CPU runs the stepped window, as the reference does).
+
+    And it needs K's shape where the form was measured to win.  Each of
+    its blocks walks its rows one after another, with a block-wide sum a
+    row (about 1 us), so a row must carry enough bytes to hide that: on
+    the H100 the form lost at rows of 8 KiB and less (1.5 times the
+    stepped window's time at K of 105 MB, 10 times at 1 KiB rows) and
+    won from 16 KiB (0.83-0.88 times) up to the 64 KiB that its
+    shared-memory ring holds (0.57-0.65).  Longer rows take its wide
+    form, which lost (1.4-2.3 times); rows that are not a multiple of 16
+    bytes, or a K that is not 16-byte aligned, take the ring's scalar
+    form, which was not timed.  In f32 K must also be at least the
+    card's L2 cache: below it the second GEMV reads K from L2, and the
+    form lost at rows of 16 KiB with K of 17-34 MB (1.02-1.08 times); in
+    f64 it won below L2 as well (0.80 times at rows of 24 and 32 KiB),
+    but for 1.04 times at 1024 x 2048 (``chip_smoke.py --crossover``;
+    PERF.md, Findings)."""
+    if not (kernel == "cuda" and operator.name == "dense"
+            and operator.fuse is None and sigma_read == 0.0
+            and K_adj is None and K_fwd is not None and K_fwd.is_cuda):
+        return False
+    size = K_fwd.element_size()
+    row = K_fwd.shape[-1] * size
+    return (row % 16 == 0 and K_fwd.data_ptr() % 16 == 0
+            and KT_ROW_BYTES[0] <= row <= KT_ROW_BYTES[1]
+            and (size == 8 or K_fwd.nbytes >= torch.cuda
+                 .get_device_properties(K_fwd.device).L2_cache_size))
 
 
 def make_fused_ell(data_f, cols_f, data_a, cols_a, b, c, lb, ub, T, Sigma,
@@ -918,8 +971,9 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
     a (B, m, n) stack); ``K_adj=None`` means the adjoint is exactly
     ``K_fwd``'s transpose.  The dense megakernel is mounted when asked
     for on a noiseless dense operator: its transpose form when
-    ``K_adj`` is None, else its two-matrix form.  ``graph`` goes to
-    ``pdhg_loop``.
+    ``K_adj`` is None, else its two-matrix form.  Unasked, its
+    transpose form is mounted where ``transpose_form_window`` says so.
+    ``graph`` goes to ``pdhg_loop``.
     """
     (max_iters, tol, eta, omega, gamma, check_every, restart_beta,
      sigma_read, kernel) = static[:9]
@@ -937,6 +991,8 @@ def solve_core(K_fwd, K_adj, b, c, lb, ub, T, Sigma, rho,
     if operator is None:
         operator = dense_operator(K_fwd, K_fwd.mT if K_adj is None else K_adj,
                                   sigma_read, generator)
+    megakernel = megakernel or transpose_form_window(
+        operator, K_fwd, K_adj, sigma_read, kernel)
     if (megakernel and operator.fuse is None and sigma_read == 0.0
             and operator.name == "dense"):
         operator = operator._replace(fuse=make_fused_dense(

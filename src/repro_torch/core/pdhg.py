@@ -73,7 +73,10 @@ class PDHGOptions:
     kernel: str = "cuda"           # update backend: "torch" | "cuda"
     sparse_kernel: str = "ell"     # sparse operator backend (batch slice)
     megakernel: bool = False       # fuse each check_every window into ONE
-    #                                kernel launch (noiseless paths only)
+    #                                kernel launch (noiseless paths only;
+    #                                a card's noiseless dense window is
+    #                                fused without it where engine.
+    #                                transpose_form_window picks it)
     step_rule: str = "fixed"       # "fixed" | "adaptive" | "strongly_convex"
     norm_backend: str = "lanczos"  # "lanczos" (Algorithm 3) | "power"
     refine_rounds: int = 0         # digital refinement rounds (crossbar slice)

@@ -142,7 +142,10 @@ def main(argv=None):
                          "pallas | jnp")
     ap.add_argument("--megakernel", action="store_true",
                     help="run each check window as one CUDA launch "
-                         "(noiseless paths: --backend exact and batch)")
+                         "(noiseless paths: --backend exact and batch); "
+                         "on a card a noiseless dense window whose K has "
+                         "rows of 16-64 KiB (in f32, K at least the L2 "
+                         "cache) is one already")
     ap.add_argument("--torch-device", default="cuda",
                     choices=["cuda", "cpu"],
                     help="hardware the solve runs on")
