@@ -1,8 +1,10 @@
 """Entry ``solve_jit``: each request is one pass of the pool: each LP
 solved in turn to the tolerance by ``repro_torch.core.pdhg.solve_jit``
-with the configuration's options (the stepped window as a CUDA graph,
-cuBLAS products on K and its transpose), host data in and host solution
-out; each answer carries the residuals the solve reports for it."""
+with the configuration's options (on a card, each window of a dense K
+whose rows suit it as B3's transpose form, one launch that reads K once
+a step; cuBLAS products only in the check), host data in and host
+solution out; each answer carries the residuals the solve reports for
+it."""
 from __future__ import annotations
 
 import time

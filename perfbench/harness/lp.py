@@ -20,17 +20,22 @@ DTYPE_BYTES = {"float64": 8, "float32": 4}
 
 def pool_specs(config: dict) -> List[dict]:
     """The configuration's instances: ``shapes[i % len(shapes)]`` with
-    ``seeds[i]``, of ``family`` at ``density``."""
+    ``seeds[i]``, of ``family`` at ``density``, and where the
+    configuration names its instances (``instances``), the name
+    ``instances[i % len(instances)]``."""
     shapes = config["shapes"]
+    names = config.get("instances")
     return [{"family": config["family"], "m": shapes[i % len(shapes)][0],
              "n": shapes[i % len(shapes)][1],
-             "density": config.get("density"), "seed": s}
+             "density": config.get("density"), "seed": s,
+             "name": names[i % len(names)] if names else None}
             for i, s in enumerate(config["seeds"])]
 
 
 def make_pool(config: dict) -> List[generators.Instance]:
     return [generators.make(p["family"], p["m"], p["n"], p["seed"],
-                            p["density"]) for p in pool_specs(config)]
+                            p["density"], p["name"])
+            for p in pool_specs(config)]
 
 
 def options(config: dict, traffic: dict):
@@ -108,7 +113,8 @@ class Served:
 
 class PoolEntry:
     """What the entries share: the pool made from the configuration
-    (``generate``; the seed changes nothing), the options, a warm-up
+    (``generate``; the seed changes nothing here, and at most the order
+    in which an entry serves the pool), the options, a warm-up
     budget of ``warm_windows`` windows, and the judge's readings of an
     answer.
     An entry adds ``warm``, ``request(k) -> Served`` and ``release``."""
@@ -134,6 +140,11 @@ class PoolEntry:
 
     def readings(self, answer: Answer) -> dict:
         return self.judge().readings(answer)
+
+    def pass_requests(self) -> int:
+        """Requests that serve the whole pool once: one, where a request
+        is a pass of the pool."""
+        return 1
 
     def reached(self, answer: Answer) -> bool:
         """Whether the answer met the request's goal (the tolerance)."""

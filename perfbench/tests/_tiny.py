@@ -1,5 +1,10 @@
 """Tiny cells for the CPU tests: the repository's BENCHMARK.json and
-traffic mixes with configurations small enough for the CPU."""
+traffic mixes with configurations small enough for the CPU.
+
+Each configuration's tiny sizes are a file of their own,
+``tiny/<config>.json``, laid over the configuration's own file: what a
+tiny file gives replaces the configuration's key of that name, and what
+it leaves out (a crossbar's device block, say) is the configuration's."""
 from __future__ import annotations
 
 import json
@@ -12,20 +17,9 @@ for p in (str(REPO), str(REPO / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY = {
-    "lp-dense-3840x7680": {"family": "rand", "shapes": [[24, 48]],
-                           "density": None, "seeds": [0, 1, 2, 3],
-                           "dtype": "float64",
-                           "options": {"tol": 1e-6, "max_iters": 20000,
-                                       "check_every": 100}},
-    # seeds whose tiny LPs reach tol within the budget
-    "lp-sparse-miplib-x128": {"family": "sprand",
-                              "shapes": [[32, 64], [48, 96]],
-                              "density": 0.15, "seeds": [2, 1, 4, 3],
-                              "dtype": "float64",
-                              "options": {"tol": 1e-6, "max_iters": 8000,
-                                          "check_every": 100}},
-}
+TINY_DIR = Path(__file__).resolve().parent / "tiny"
+TINY = {p.stem: json.loads(p.read_text())
+        for p in sorted(TINY_DIR.glob("*.json"))}
 
 
 def bench() -> dict:
@@ -41,8 +35,8 @@ def tiny_data(tmp: Path, options=None) -> Path:
         shutil.copytree(src / sub, tmp / sub)
     (tmp / "configs").mkdir()
     for name, cfg in TINY.items():
-        cfg = dict(cfg, name=name,
-                   options={**cfg["options"], **(options or {})})
+        full = json.loads((src / "configs" / f"{name}.json").read_text())
+        cfg = {**full, **cfg, "name": name,
+               "options": {**cfg["options"], **(options or {})}}
         (tmp / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     return tmp
-

@@ -1,8 +1,12 @@
 """Each fault a cell can have, planted in the program under a whole run
 of a tiny cell on the CPU (the harness's look for a card skipped), makes
-``correct`` come out false.  One chip, so no cell has an exchange
-between chips to leave out; the dense cell's program solves one LP a
-call, so only the stream has a batch to cut in half."""
+``correct`` come out false.  A fault is planted under the entries whose
+program can have it, and runs in every cell whose traffic names one of
+them, so that a new cell on an existing entry is covered as it is
+added.  One chip, so no cell has an exchange between chips to leave
+out; the dense entries' program solves one LP a call, so only the stream
+has a batch to cut in half.  The crossbar entry's own departures are in
+``test_perfbench_xbar.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +15,7 @@ import numpy as np
 import pytest
 
 import _tiny  # noqa: F401
-from test_perfbench_harness import CELLS, _run
+from test_perfbench_harness import CELLS, ENTRIES, _run
 
 
 def _unchanged_state(monkeypatch):
@@ -65,12 +69,13 @@ def _half_the_batch(monkeypatch):
     monkeypatch.setattr(batch.BatchSolver, "solve_stream", half)
 
 
-FAULTS = {"unchanged_state": (_unchanged_state, CELLS),
-          "altered_answer": (_altered_answer, ["dense-exact-tol",
-                                               "sparse-stream-tol"]),
-          "half_the_batch": (_half_the_batch, ["sparse-stream-tol"])}
-CASES = [(f, c) for f, (_, cells) in FAULTS.items() for c in cells
-         if c in CELLS]
+# each fault with the entries it is planted under
+FAULTS = {"unchanged_state": (_unchanged_state, ("solve_jit", "solve_stream",
+                                                 "solve_crossbar")),
+          "altered_answer": (_altered_answer, ("solve_jit", "solve_stream")),
+          "half_the_batch": (_half_the_batch, ("solve_stream",))}
+CASES = [(f, c) for f, (_, entries) in FAULTS.items() for c in CELLS
+         if ENTRIES[c] in entries]
 
 
 @pytest.mark.parametrize("fault,cell", CASES)

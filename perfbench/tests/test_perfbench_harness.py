@@ -15,6 +15,10 @@ from perfbench.harness import runner, shares, spec, trace, window
 
 BENCH = _tiny.bench()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+# each cell's entry, named by its traffic mix
+ENTRIES = {w["name"]: json.loads(
+               (spec.ROOT / "traffic" / f"{w['traffic']}.json").read_text()
+           )["entry"] for w in BENCH["workloads"]}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -51,6 +55,15 @@ def test_benchmark_json_keeps_to_its_format():
         assert json.loads((_tiny.REPO / c["file"]).read_text())[
             "reduced"] == c["reduced"]
     assert 1 <= BENCH["run_seconds"] <= 51
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_has_its_tiny_sizes(config):
+    """A configuration is added as files: its tiny sizes are one more
+    file, ``tests/tiny/<config>.json``, which the tiny cells read."""
+    assert config in _tiny.TINY, f"no tests/tiny/{config}.json"
+    tiny = _tiny.TINY[config]
+    assert {"family", "shapes", "seeds", "dtype", "options"} <= set(tiny)
 
 
 @pytest.mark.parametrize("names,found", [
@@ -165,9 +178,10 @@ def test_trace_summary_by_hand():
     assert trace.summarize([], host, 1.0) is None
 
 
-def _run(tmp_path, cell, traced=False, options=None, seconds=0.1):
+def _run(tmp_path, cell, traced=False, options=None, seconds=0.1,
+         bench=None):
     data = _tiny.tiny_data(tmp_path, options)
-    c = spec.load_cell(cell, BENCH, data)
+    c = spec.load_cell(cell, BENCH if bench is None else bench, data)
     out, err = io.StringIO(), io.StringIO()
     res = runner.run(c, 2**31 + 11, seconds, traced, t_start=0.0,
                      device="cpu", out=out, err=err)

@@ -36,6 +36,22 @@ def test_sparse_generator_is_the_programs_bit_for_bit(m, n, density, seed):
     assert ours.obj_opt == theirs.obj_opt and ours.name == theirs.name
 
 
+@pytest.mark.parametrize("name", sorted(generators.TABLE1))
+@pytest.mark.parametrize("seed", [0, 2**31 + 5])
+def test_table1_generator_is_the_programs_bit_for_bit(name, seed):
+    from repro_torch.lp import TABLE1_SIZES, table1_instance
+
+    m, n, _ = generators.TABLE1[name]
+    assert TABLE1_SIZES[name] == (m, n)
+    ours = generators.make("table1", m, n, seed, name=name)
+    theirs = table1_instance(name, seed=seed)
+    for f in ("c", "K", "b", "lb", "ub"):
+        assert np.array_equal(getattr(ours, f), getattr(theirs, f)), f
+    assert ours.obj_opt == theirs.obj_opt and ours.name == theirs.name
+    with pytest.raises(ValueError, match="not an instance of Table 1"):
+        generators.make("table1", m + 1, n, seed, name=name)
+
+
 def test_unknown_family_is_refused():
     with pytest.raises(ValueError, match="unknown instance family"):
         generators.make("mps", 4, 8, 0)

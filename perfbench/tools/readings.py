@@ -7,12 +7,17 @@ card at the cell's own sizes.
 
 ``--program``: the program through the cell's entry, in the precision
 the configuration states, on the instances of these generator seeds
-(the configuration's family and shapes, shapes cycling by position),
-served as one request.  ``--control``: the same with the program's own
+(the configuration's family and shapes, shapes cycling by position; for
+a configuration that names its instances, each of them on each seed),
+served as one pass of the pool.  ``--control``: the same with the program's own
 float32 path switched on (the step below the float64 the configurations
-state).  Each answer is judged as a run
+state).  ``--plant``: a departure of ``tools/departures.py`` planted in
+the program for its side (``--program``), such as ``read_noise_off`` on a
+crossbar cell.  Each answer is judged as a run
 judges it; one JSON line an answer, then the worst of each number and
-the judge's verdict on each side.
+the judge's verdict on each side.  ``--bench``: a JSON file with the
+cell's entries of ``BENCHMARK.json``'s lists, for a cell that is not in
+it yet (default: ``BENCHMARK.json``).
 """
 from __future__ import annotations
 
@@ -38,29 +43,35 @@ def seeds(text: str):
 
 
 def served(cell, device, pool_seeds=None, dtype=None):
-    """One request of the cell's entry on the instances of
-    ``pool_seeds`` (default: the configuration's), with the
-    configuration's dtype replaced by ``dtype`` where given.  Returns
-    ``(entry, served, wall seconds)``."""
+    """One pass of the cell's entry over the instances of ``pool_seeds``
+    (default: the configuration's), with the configuration's dtype
+    replaced by ``dtype`` where given.  Returns ``(entry, served, wall
+    seconds)``: the pass's answers and the last request's report."""
     import torch
 
-    from perfbench.harness import spec
+    from perfbench.harness import lp, spec
 
     cfg = dict(cell.config)
     if pool_seeds is not None:
-        cfg["seeds"] = list(pool_seeds)
+        names = cfg.get("instances")
+        cfg["seeds"] = ([s for s in pool_seeds for _ in names] if names
+                        else list(pool_seeds))
     if dtype is not None:
         cfg["dtype"] = dtype
     entry = spec.entry_class(cell)(cfg, cell.traffic, device)
     entry.generate(0)
     entry.warm()
     t = time.perf_counter()
-    out = entry.request(0)
+    answers, info = [], {}
+    for k in range(entry.pass_requests()):
+        out = entry.request(k)
+        answers += out.answers
+        info = out.info
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t
     entry.release()
-    return entry, out, wall
+    return entry, lp.Served(answers, info), wall
 
 
 def main(argv=None) -> int:
@@ -68,14 +79,23 @@ def main(argv=None) -> int:
     ap.add_argument("--cell", required=True)
     ap.add_argument("--program", default="")
     ap.add_argument("--control", default="")
+    ap.add_argument("--plant", default=None)
+    ap.add_argument("--bench", default=None)
     args = ap.parse_args(argv)
+
+    import contextlib
 
     import torch
 
-    from perfbench.harness import runner, spec
+    from perfbench.harness import lp, runner, spec
+    from perfbench.tools import departures
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cell = spec.load_cell(args.cell)
+    bench = None
+    if args.bench:
+        with open(args.bench) as f:
+            bench = json.load(f)
+    cell = spec.load_cell(args.cell, bench)
     dev = torch.device("cuda")
     summary: dict = {}
     for who, text, dtype in (("program", args.program, None),
@@ -83,13 +103,20 @@ def main(argv=None) -> int:
         ss = seeds(text)
         if not ss:
             continue
-        entry, out, wall = served(cell, dev, ss, dtype)
+        plant = (departures.planted(args.plant)
+                 if who == "program" and args.plant
+                 else contextlib.nullcontext())
+        with plant:
+            entry, out, wall = served(cell, dev, ss, dtype)
+        specs = lp.pool_specs(entry.config)
         worst: dict = {}
         for a in out.answers:
             r = entry.readings(a)
             for k, v in r.items():
                 worst[k] = max(worst.get(k, 0.0), v)
-            print(json.dumps({"who": who, "seed": ss[a.index],
+            print(json.dumps({"who": who, "plant": args.plant,
+                              "seed": specs[a.index]["seed"],
+                              "instance": entry.pool[a.index].name,
                               "dtype": entry.config["dtype"],
                               "iterations": a.iterations,
                               "status": a.status,
